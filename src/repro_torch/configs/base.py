@@ -1,0 +1,134 @@
+"""Configuration dataclasses (the port's own copy of ``repro.configs.base``).
+
+``ArchConfig`` describes a model, ``ParallelConfig`` the execution knobs
+the serving path reads, ``AnalogConfig`` the SEMULATOR analog backend.
+Field names and defaults match the reference so configs read the same.
+"""
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass, field
+from typing import Optional, Tuple
+
+# Layer kinds used in ``ArchConfig.pattern``.
+GLOBAL_ATTN = "G"     # full causal self attention
+LOCAL_ATTN = "L"      # sliding-window causal self attention
+CHUNKED_ATTN = "C"    # block-chunked causal self attention (llama4 iRoPE)
+RECURRENT = "R"       # RG-LRU recurrent block (griffin/recurrentgemma)
+MAMBA = "M"           # mamba-1 selective-SSM mixer
+BIDIR_ATTN = "B"      # bidirectional self attention (encoder)
+
+ATTN_KINDS = (GLOBAL_ATTN, LOCAL_ATTN, CHUNKED_ATTN, BIDIR_ATTN)
+
+
+@dataclass(frozen=True)
+class AnalogConfig:
+    """SEMULATOR analog-crossbar execution of matmuls.
+
+    backend: ``digital`` (plain matmul) or ``emulator`` (the Conv4Xbar
+    regression net).  The ``analytic`` and ``circuit`` backends of the
+    reference are not ported yet (ROADMAP A7)."""
+    enabled: bool = False
+    backend: str = "emulator"
+    rows: int = 64                     # crossbar wordlines per tile
+    cols_per_out: int = 2              # differential pair (G+, G-)
+    outs_per_block: int = 1            # MAC outputs per computing block
+    g_min: float = 1e-6                # S
+    g_max: float = 1e-4                # S
+    v_read: float = 0.2                # V
+    layers: Tuple[str, ...] = ("mlp", "attn")  # which projections run analog
+    emulator_params_path: Optional[str] = None
+    # gate-overdrive wordline biasing: nonzero normalized drives map into
+    # [v_th/v_read, 1] so they clear the access transistor's cut-off
+    wl_overdrive: bool = True
+    # device non-ideality scenario name; None = ideal corner (the only
+    # corner this port serves so far, ROADMAP A8)
+    scenario: Optional[str] = None
+
+
+@dataclass(frozen=True)
+class ParallelConfig:
+    """The execution knobs the serving path reads (the reference's mesh,
+    sharding and training fields have no counterpart here yet)."""
+    attn_block_kv: int = 1024          # blockwise-softmax KV block
+    compute_dtype: str = "bfloat16"
+
+
+@dataclass(frozen=True)
+class ArchConfig:
+    name: str
+    family: str                        # dense | moe | hybrid | ssm | vlm | audio
+    num_layers: int
+    d_model: int
+    num_heads: int
+    num_kv_heads: int
+    head_dim: int
+    d_ff: int
+    vocab_size: int
+    # layer pattern, cycled over layers (periods stacked, remainder = tail)
+    pattern: Tuple[str, ...] = (GLOBAL_ATTN,)
+    window: int = 4096                 # local-attn window / chunk size
+    rope_base: float = 10_000.0
+    rope_base_global: float = 0.0      # 0 -> same as rope_base
+    qk_norm: bool = False
+    qkv_bias: bool = False
+    mlp_gated: bool = True
+    mlp_act: str = "silu"              # silu | gelu | relu
+    norm: str = "rmsnorm"              # rmsnorm | layernorm
+    parallel_block: bool = False
+    post_norms: bool = False           # gemma3 sandwich norms
+    tie_embeddings: bool = False
+    logit_softcap: float = 0.0
+    emb_scale: bool = False            # gemma-style sqrt(d) embedding scale
+    vocab_pad_to: int = 256
+    encoder_layers: int = 0
+    frontend: str = "none"
+    frontend_tokens: int = 256
+    analog: AnalogConfig = field(default_factory=AnalogConfig)
+    source: str = ""
+
+    @property
+    def padded_vocab(self) -> int:
+        p = self.vocab_pad_to
+        return -(-self.vocab_size // p) * p
+
+    @property
+    def layer_kinds(self) -> Tuple[str, ...]:
+        p = self.pattern
+        return tuple(p[i % len(p)] for i in range(self.num_layers))
+
+    @property
+    def num_periods(self) -> int:
+        return self.num_layers // len(self.pattern)
+
+    @property
+    def tail_kinds(self) -> Tuple[str, ...]:
+        rem = self.num_layers % len(self.pattern)
+        return tuple(self.pattern[:rem])
+
+
+def reduced(cfg: ArchConfig, *, layers: Optional[int] = None) -> ArchConfig:
+    """A tiny same-family config for CPU smoke tests (the reference's
+    ``reduced`` for the dense attention families ported so far)."""
+    pat = cfg.pattern
+    n_layers = layers if layers is not None else max(len(pat), 2)
+    kw = dict(
+        num_layers=n_layers,
+        d_model=64,
+        num_heads=4,
+        num_kv_heads=max(1, min(cfg.num_kv_heads, 2)),
+        head_dim=16,
+        d_ff=128,
+        vocab_size=256,
+        vocab_pad_to=32,
+        window=max(8, min(cfg.window, 16)),
+        frontend_tokens=4 if cfg.frontend != "none" else cfg.frontend_tokens,
+        encoder_layers=2 if cfg.encoder_layers else 0,
+    )
+    return dataclasses.replace(cfg, name=cfg.name + "-reduced", **kw)
+
+
+def with_depth(cfg: ArchConfig, layers: int) -> ArchConfig:
+    """Same widths, ``layers`` decoder layers (depth cut only)."""
+    return dataclasses.replace(cfg, name=f"{cfg.name}-L{layers}",
+                               num_layers=layers)

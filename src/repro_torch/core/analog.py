@@ -1,0 +1,258 @@
+"""AnalogExecutor: dense projections on emulated crossbar hardware (port of
+``repro.core.analog`` for the emulator backend at the ideal corner).
+
+Weights are tiled onto differential 1T1R crossbars (``core.crossbar``);
+activations drive the wordlines dual-rail (v+ = relu(x), v- = relu(-x));
+blocks of D tiles accumulate in analog, block groups sum digitally; an
+affine calibration maps volts back to logical units.  The emulator
+evaluates both rails of every block in one pass
+(``kernels.emulator_block.emulator_block_unified``: the CUDA kernel for
+CUDA tensors, its plain version for CPU tensors).  The backward pass is
+the straight-through digital gradient (``_STMatmul``).
+
+What the reference computes per call, this port computes per call too:
+the conductance plan is cached per (tag, weight), the emulator weights'
+repack per params binding, and the per-block precompute
+(``blocklast_precompute``) is rebuilt on every call, as in the
+reference's serving trace.
+
+Not in this slice (each raises ``NotImplementedError`` naming its
+ROADMAP item): the circuit/analytic backends (A7), non-ideal corners,
+read noise, remapping and ``deploy(...)`` (A8), calibration (A5).
+"""
+from __future__ import annotations
+
+import contextlib
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.configs.base import AnalogConfig
+from repro_torch.configs.rram_ps32 import BlockGeometry, CASE_A
+from repro_torch.core import conv4xbar
+from repro_torch.core.circuit import CircuitParams
+from repro_torch.core.crossbar import ConductancePlan, build_conductance_plan
+from repro_torch.core.deployment import DeploymentState
+from repro_torch.kernels.emulator_block import emulator_block_unified
+
+
+class _STMatmul(torch.autograd.Function):
+    """Calibrated analog forward, straight-through digital gradient."""
+
+    @staticmethod
+    def forward(ctx, ex: "AnalogExecutor", tag: str, x2: torch.Tensor,
+                w: torch.Tensor, st: DeploymentState):
+        ctx.save_for_backward(x2, w)
+        plan = ex._plan_for(w, tag).with_g(ex._ideal_read(st.gf), ex.acfg) \
+            .with_perm(st.out_perm)
+        yv, xs = ex.raw_matmul(x2, w, tag, plan=plan,
+                               eparams=st.eparams or None, sfeat=st.sfeat)
+        return (st.cal_a * yv + st.cal_b) * xs
+
+    @staticmethod
+    def backward(ctx, ct):
+        x2, w = ctx.saved_tensors
+        gx = (ct @ w.to(ct.dtype).T).to(x2.dtype)
+        gw = (x2.to(ct.dtype).T @ ct).to(w.dtype)
+        return None, None, gx, gw, None
+
+
+class _StateBinding:
+    """Per-forward resolution of dense() call sites to DeploymentStates.
+
+    Model tags repeat across layers, so the i-th call with tag T gets the
+    site key ``"T#i"``; sites inside a stacked period ``p`` of group ``g``
+    are keyed ``"{g}.{p}:{tag}#{j}"`` with ``j`` counted within the
+    period -- the reference's keys.  In record mode the binding collects
+    ``site_key -> weight`` and lets the call run digitally; in serve mode
+    it routes each site through ``AnalogExecutor.matmul`` with its
+    state."""
+
+    def __init__(self, states: Optional[Dict[str, DeploymentState]] = None,
+                 record: Optional[Dict[str, torch.Tensor]] = None):
+        self.states = states
+        self.record = record
+        self._ordinals: Dict[str, int] = {}
+        self._prefix = ""
+
+    @property
+    def recording(self) -> bool:
+        return self.record is not None
+
+    def site_key(self, tag: str) -> str:
+        i = self._ordinals.get(tag, 0)
+        self._ordinals[tag] = i + 1
+        return f"{self._prefix}{tag}#{i}"
+
+    @contextlib.contextmanager
+    def scan_period(self, group: str, period: int):
+        """Fresh within-period ordinals and key prefix for the duration."""
+        saved = (self._ordinals, self._prefix)
+        self._ordinals, self._prefix = {}, f"{group}.{period}:"
+        try:
+            yield
+        finally:
+            self._ordinals, self._prefix = saved
+
+    def intercept(self, ex: "AnalogExecutor", x, w, tag: str):
+        sk = self.site_key(tag)
+        if self.record is not None:
+            self.record[sk] = w
+            return None
+        st = self.states.get(sk) if self.states is not None else None
+        if st is None:
+            raise KeyError(
+                f"no DeploymentState bound for call site {sk!r} (bound: "
+                f"{sorted(self.states or ())}); states must be served with "
+                "the model / layer configuration they were built for")
+        return ex.matmul(x, w, sk, state=st)
+
+
+def _not_ported(what: str, item: str):
+    return NotImplementedError(f"{what} is not ported yet (ROADMAP {item}); "
+                               "the port serves the ideal corner only")
+
+
+class AnalogExecutor:
+    """Serving executor for analog matmuls (see module docstring).
+
+    Owns, per weight ``tag``: the cached conductance plan and the ideal
+    ``DeploymentState``.  ``emulator_params`` are tensors on the device
+    the matmuls run on."""
+
+    def __init__(self, acfg: AnalogConfig, geom: BlockGeometry = CASE_A,
+                 cp: Optional[CircuitParams] = None,
+                 emulator_params: Optional[dict] = None,
+                 calibration: Optional[Dict[str, tuple]] = None):
+        if acfg.backend not in ("digital", "emulator"):
+            raise _not_ported(f"the {acfg.backend!r} backend", "A7")
+        if acfg.scenario:
+            raise _not_ported(f"scenario {acfg.scenario!r}", "A8")
+        if acfg.backend == "emulator" and emulator_params is None:
+            raise ValueError("the emulator backend needs Conv4Xbar params")
+        self.acfg = acfg
+        self.geom = geom
+        self.cp = cp if cp is not None else CircuitParams()
+        self.emulator_params = emulator_params
+        self.calibration: Dict[str, tuple] = dict(calibration or {})
+        self._plans: Dict[str, Tuple[torch.Tensor, ConductancePlan]] = {}
+        self._states: Dict[str, Tuple[ConductancePlan, DeploymentState]] = {}
+        self._aux = None
+        self._aux_src = None
+        self._binding: Optional[_StateBinding] = None
+
+    # ------------------------------------------------------------------ #
+    def deploy(self, **kw):
+        raise _not_ported("deploy(...) (non-ideal corners, aging, remapping, "
+                          "hot-swapped params)", "A8")
+
+    def calibrate(self, *a, **kw):
+        raise _not_ported("calibration", "A5")
+
+    # ------------------------------------------------------------------ #
+    def _plan_for(self, w: torch.Tensor, tag: str) -> ConductancePlan:
+        """Tile/pad/interleave once per bound weight; rebuilt when the tag
+        is rebound to a different tensor."""
+        ent = self._plans.get(tag) if tag else None
+        if ent is not None and ent[0] is w:
+            return ent[1]
+        with torch.no_grad():
+            plan = build_conductance_plan(w.detach(), self.acfg, self.geom)
+        if tag:
+            self._plans[tag] = (w, plan)
+        return plan
+
+    def _blocklast_aux(self, eparams: Optional[dict] = None) -> dict:
+        """Stage-collapsed emulator weights, cached per params binding."""
+        params = self.emulator_params if eparams is None else eparams
+        if self._aux is None or self._aux_src is not params:
+            with torch.no_grad():
+                self._aux = conv4xbar.blocklast_weights(params, self.geom)
+            self._aux_src = params
+        return self._aux
+
+    def state_for(self, tag: str, w: torch.Tensor) -> DeploymentState:
+        """The ideal state for ``(tag, w)``, stamped with the tag's
+        calibration affine (unit by default)."""
+        plan = self._plan_for(w, tag)
+        ent = self._states.get(tag)
+        if ent is None or ent[0] is not plan:
+            ep = self.emulator_params if self.acfg.backend == "emulator" else None
+            ent = (plan, DeploymentState.ideal(plan, eparams=ep))
+            self._states[tag] = ent
+        a, b = self.calibration.get(tag, (1.0, 0.0))
+        return ent[1].with_calibration(a, b)
+
+    def _ideal_read(self, g: torch.Tensor) -> torch.Tensor:
+        """The reference's read-noise draw at sigma 0: an exact identity
+        up to clamping the cells (g > 0) into [g_min, g_max], which a bf16
+        weight's rounded conductances can leave."""
+        return torch.where(g > 0.0, torch.clamp(g, self.acfg.g_min,
+                                                self.acfg.g_max), g)
+
+    def _drive01(self, u01: torch.Tensor) -> torch.Tensor:
+        """Gate-overdrive wordline biasing: nonzero drives map into
+        [v_th/v_read, 1]; zero stays exactly zero (the dual-rail delta
+        factorization and the padded tiles depend on it)."""
+        if not self.acfg.wl_overdrive:
+            return u01
+        t = self.cp.v_th / self.acfg.v_read
+        return torch.where(u01 > 0.0, t + u01 * (1.0 - t),
+                           torch.zeros_like(u01))
+
+    # ------------------------------------------------------------------ #
+    def raw_matmul(self, x2d: torch.Tensor, w: torch.Tensor, tag: str = "",
+                   plan: Optional[ConductancePlan] = None,
+                   eparams: Optional[dict] = None,
+                   sfeat: Optional[torch.Tensor] = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Analog forward for (B,K) @ (K,N), in volts (uncalibrated), and
+        the drive scale ``max|x|`` of the whole call."""
+        if self.acfg.backend != "emulator":
+            raise _not_ported(f"the {self.acfg.backend!r} analog forward", "A7")
+        if plan is None:
+            plan = self._plan_for(w, tag)
+        x2d = x2d.float()
+        x_scale = torch.clamp_min(torch.max(torch.abs(x2d)), 1e-9)
+        aux = self._blocklast_aux(eparams)
+        pre = conv4xbar.blocklast_precompute(aux, plan.g_norm)
+        shift = None
+        if sfeat is not None and "f0_scen" in aux:
+            shift = sfeat @ aux["f0_scen"]
+        u = plan.tile_v(self._drive01(torch.abs(x2d) / x_scale), 1.0)
+        pos = plan.tile_v((x2d > 0).float(), 1.0)
+        y2 = emulator_block_unified(aux, pre, u.contiguous(),
+                                    pos.contiguous(), shift=shift)
+        del pre
+        return plan.assemble(y2[0]) - plan.assemble(y2[1]), x_scale
+
+    def matmul(self, x: torch.Tensor, w: torch.Tensor, tag: str = "",
+               state: Optional[DeploymentState] = None) -> torch.Tensor:
+        """Calibrated analog matmul with straight-through digital gradient;
+        ``state`` overrides the tag's ideal state."""
+        lead = x.shape[:-1]
+        x2 = x.reshape(-1, x.shape[-1]).float()
+        st = state if state is not None else self.state_for(tag, w)
+        y = _STMatmul.apply(self, tag, x2, w, st)
+        return y.reshape(*lead, w.shape[1]).to(x.dtype)
+
+    # ------------------------------------------------------------------ #
+    @contextlib.contextmanager
+    def bound_states(self, binding: _StateBinding):
+        """Route dense() call sites through ``binding`` for the duration."""
+        prev = self._binding
+        self._binding = binding
+        try:
+            yield binding
+        finally:
+            self._binding = prev
+
+    def hook(self, x: torch.Tensor, w: torch.Tensor, tag: str):
+        """dense()-hook: route configured projections to the analog path."""
+        if self.acfg.backend == "digital":
+            return None
+        if not any(tag.startswith(l) for l in self.acfg.layers):
+            return None
+        if self._binding is not None:
+            return self._binding.intercept(self, x, w, tag)
+        return self.matmul(x, w, tag)

@@ -1,0 +1,313 @@
+"""Conv4Xbar: the paper's emulator architecture (Fig. 3, Table 2), the port
+of ``repro.core.conv4xbar``.
+
+A 3D-CNN whose kernels have depth 1 and grow along the row axis (H: 1 ->
+2 -> 4 -> 8 with matching strides), then a (1,1,2) conv across the
+differential column pairs, then an FC head (128/256 -> 32 -> 16 -> O),
+CELU everywhere.  Peripheral features are concatenated before the head.
+
+Two apply paths:
+  apply()           -- paper-faithful Conv3d stack (tests)
+  apply_blocklast() -- the channels-last serving fast path: conductance
+                       terms precomputed per plan, both voltage rails from
+                       ONE magnitude-drive CELU (the dual-rail delta
+                       factorization).  It is the plain version of the
+                       unified CUDA kernel (``kernels.emulator_block``).
+
+Parameter names, shapes and ``_meta`` match the reference, so its param
+dicts (and its emulator npz files) load unchanged.
+"""
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import List, Optional, Sequence, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.rram_ps32 import BlockGeometry
+from repro_torch.models.common import ParamSchema, celu
+
+
+@dataclass(frozen=True)
+class ConvStage:
+    c_in: int
+    c_out: int
+    kernel: Tuple[int, int, int]     # (D, H, W)
+    stride: Tuple[int, int, int]
+
+
+def build_stages(geom: BlockGeometry) -> List[ConvStage]:
+    """Table 2 stack, generalized to any (C, D, H, W) geometry."""
+    stages = [ConvStage(geom.features, 16, (1, 1, 1), (1, 1, 1))]
+    h = geom.rows
+    for c_in, c_out, k in [(16, 8, 2), (8, 4, 4), (4, 32, 8)]:
+        k = min(k, h)
+        stages.append(ConvStage(c_in, c_out, (1, k, 1), (1, k, 1)))
+        h = h // k
+    # across differential column pairs; stride 2 when W > 2
+    w_stride = 1 if geom.cols <= 2 else 2
+    stages.append(ConvStage(32, 32, (1, 1, 2), (1, 1, w_stride)))
+    return stages
+
+
+def _out_size(size, k, s):
+    return (size - k) // s + 1
+
+
+def conv_out_sizes(stages: Sequence[ConvStage], d: int, h: int, w: int):
+    """Spatial output dims of the stage stack for a (d, h, w) input."""
+    for st in stages:
+        d = _out_size(d, st.kernel[0], st.stride[0])
+        h = _out_size(h, st.kernel[1], st.stride[1])
+        w = _out_size(w, st.kernel[2], st.stride[2])
+    return d, h, w
+
+
+def flat_features(geom: BlockGeometry) -> int:
+    d, h, w = conv_out_sizes(build_stages(geom), geom.tiles, geom.rows,
+                             geom.cols)
+    return 32 * d * h * w
+
+
+def conv4xbar_schema(geom: BlockGeometry, n_periph: int = 0,
+                     head: Sequence[int] = (32, 16)):
+    """Parameter schema (shapes + init) for one emulator."""
+    s = {}
+    for i, st in enumerate(build_stages(geom)):
+        fan_in = st.c_in * int(math.prod(st.kernel))
+        s[f"conv{i}_w"] = ParamSchema((st.c_out, st.c_in) + st.kernel,
+                                      "normal", math.sqrt(2.0 / fan_in))
+        s[f"conv{i}_b"] = ParamSchema((st.c_out,), "zeros")
+    dims = [flat_features(geom) + n_periph, *head, geom.outputs]
+    for i in range(len(dims) - 1):
+        s[f"fc{i}_w"] = ParamSchema((dims[i], dims[i + 1]), "normal",
+                                    math.sqrt(2.0 / dims[i]))
+        s[f"fc{i}_b"] = ParamSchema((dims[i + 1],), "zeros")
+    s["_meta"] = ParamSchema((3,), "zeros")   # (n_stages, n_fc, n_periph)
+    return s
+
+
+def n_periph_of(params, geom: BlockGeometry) -> int:
+    """Peripheral-feature width a param set was bound to (fc0 rows past
+    the conv flatten); ``> 2`` means scenario-conditioned."""
+    return int(params["fc0_w"].shape[0]) - flat_features(geom)
+
+
+def _n_stages(params):
+    return len([k for k in params if k.startswith("conv") and k.endswith("_w")])
+
+
+def _n_fc(params):
+    return len([k for k in params if k.startswith("fc") and k.endswith("_w")])
+
+
+def _head(params, h, n_fc):
+    for i in range(n_fc):
+        h = h @ params[f"fc{i}_w"] + params[f"fc{i}_b"]
+        if i < n_fc - 1:
+            h = celu(h)
+    return h
+
+
+def _stride_of(w, h):
+    """Stage stride from the kernel shape (the final (1,1,2) stage has
+    stride_w 2 iff W_in > 2)."""
+    kd, kh, kw = w.shape[2], w.shape[3], w.shape[4]
+    if (kd, kh, kw) == (1, 1, 2):
+        return (1, 1, 1 if h.shape[4] <= 2 else 2)
+    return (kd, kh, kw)
+
+
+def apply(params, x: torch.Tensor,
+          periph: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Paper-faithful path. x: (B, C, D, H, W) -> (B, O)."""
+    h = x
+    for i in range(_n_stages(params)):
+        w = params[f"conv{i}_w"]
+        h = F.conv3d(h, w, stride=_stride_of(w, h))
+        h = celu(h + params[f"conv{i}_b"][None, :, None, None, None])
+    h = h.reshape(h.shape[0], -1)
+    if periph is not None:
+        h = torch.cat([h, periph.to(h.dtype)], dim=-1)
+    return _head(params, h, _n_fc(params))
+
+
+# --------------------------------------------------------------------------- #
+# Blockified serving fast path (channels-last, conductance precomputed)
+#
+# Per weight plan the stage-0 conductance term g0 = w0_g * g_norm + b0,
+# its zero-voltage response celu(g0) and that response's stage-1
+# projection y0 = celu(g0) @ W1 + b1 are batch-constant.  At every
+# wordline exactly one rail (v+ = relu(x), v- = relu(-x)) is nonzero, so
+# the stage-0 CELU runs once on |x| and both rails are rebuilt from
+# delta = celu(v0 + g0) - celu(g0), with the rail mask on the stage-1
+# GEMM output.  Activations stay channels-last (n, D, W, H, C) so every
+# conv stage is a reshape + trailing-dim matmul.
+# --------------------------------------------------------------------------- #
+def blocklast_weights(params, geom: BlockGeometry,
+                      periph_const=(1.0, 0.0)) -> dict:
+    """Repack emulator params for the channels-last blockified fast path."""
+    if geom.features != 2:
+        raise ValueError("blocklast_weights expects (V, G) cell features")
+    stages = build_stages(geom)
+    aux = {}
+    w0 = params["conv0_w"][:, :, 0, 0, 0]             # (C0, 2)
+    aux["w0v"], aux["w0g"] = w0[:, 0].contiguous(), w0[:, 1].contiguous()
+    aux["b0"] = params["conv0_b"]
+    hstages = []
+    for i, st in enumerate(stages[1:-1], start=1):
+        k = st.kernel[1]
+        w = params[f"conv{i}_w"][:, :, 0, :, 0]       # (O, I, k)
+        wk = w.permute(2, 1, 0).reshape(k * st.c_in, st.c_out).contiguous()
+        hstages.append((wk, params[f"conv{i}_b"], k))
+    aux["hstages"] = tuple(hstages)
+    # stage 1 split by row-window position kk: (k1, C0, O1)
+    w1, _, k1 = hstages[0]
+    c0 = stages[0].c_out
+    aux["w1k"] = w1.reshape(k1, c0, w1.shape[1])
+    iw = len(stages) - 1
+    st = stages[iw]
+    kw = st.kernel[2]
+    w = params[f"conv{iw}_w"][:, :, 0, 0, :]          # (O, I, kw)
+    aux["wstage"] = (w.permute(2, 1, 0).reshape(kw * st.c_in,
+                                                st.c_out).contiguous(),
+                     params[f"conv{iw}_b"], kw)
+    # fc0: rows from (c, d, h, w) flatten order to (d, h, w, c); the
+    # constant peripheral drive folds into the bias
+    d, h, wd = conv_out_sizes(stages, geom.tiles, geom.rows, geom.cols)
+    cf = stages[-1].c_out
+    flat = cf * d * h * wd
+    f0 = params["fc0_w"]
+    perm = f0[:flat].reshape(cf, d, h, wd, -1).permute(1, 2, 3, 0, 4)
+    perm = perm.reshape(flat, -1).contiguous()
+    n_periph = f0.shape[0] - flat
+    b0 = params["fc0_b"]
+    if n_periph:
+        # zeros past the supplied constants: a conditioned net's scenario
+        # rows encode the ideal corner as exactly 0
+        pc = torch.zeros((n_periph,), dtype=f0.dtype, device=f0.device)
+        m = min(len(periph_const), n_periph)
+        pc[:m] = torch.tensor(periph_const[:m], dtype=f0.dtype)
+        b0 = b0 + pc @ f0[flat:]
+    if n_periph > len(periph_const):
+        # scenario-feature rows: the corner's contribution is a per-call
+        # fc0 shift sfeat @ f0_scen
+        aux["f0_scen"] = f0[flat + len(periph_const):]
+    fcs = [(perm, b0)]
+    for i in range(1, _n_fc(params)):
+        fcs.append((params[f"fc{i}_w"], params[f"fc{i}_b"]))
+    aux["fcs"] = tuple(fcs)
+    return aux
+
+
+def stage0_conductance(aux: dict, g_norm: torch.Tensor) -> torch.Tensor:
+    """g_norm: (NB, NO, D, H, W) -> (NB, NO, D, W, H, C0) stage-0
+    pre-activation conductance contribution."""
+    g = g_norm.permute(0, 1, 2, 4, 3)                 # (NB, NO, D, W, H)
+    return g[..., None] * aux["w0g"] + aux["b0"]
+
+
+def blocklast_precompute(aux: dict, g_norm: torch.Tensor) -> dict:
+    """Batch-independent per-plan tensors for apply_blocklast.
+
+    g0k:    stage-0 conductance pre-activation split by row-window
+            position: (k1, NB, NO, D, W, G, C0), contiguous
+    celu0k: celu(g0), same split
+    y0:     celu(g0) @ W1 + b1, (NB*NO*D*W*G, O1)
+    """
+    g0 = stage0_conductance(aux, g_norm)              # (NB, NO, D, W, H, C0)
+    celu0 = celu(g0)
+    w1, b1, k1 = aux["hstages"][0]
+    y0 = celu0.reshape(-1, w1.shape[0]) @ w1 + b1     # (NB*NO*D*W*G, O1)
+    nb, no, d, w, h, c0 = g0.shape
+    shp = (nb, no, d, w, h // k1, k1, c0)             # H -> (G, kk)
+    g0k = torch.movedim(g0.reshape(shp), 5, 0).contiguous()
+    del g0
+    celu0k = torch.movedim(celu0.reshape(shp), 5, 0).contiguous()
+    return {"g0k": g0k, "celu0k": celu0k, "y0": y0}
+
+
+def _tail_stages(aux: dict, h: torch.Tensor, n: int, shp,
+                 fc0_shift: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Conv stages 2.. + FC head on channels-last rows.  h: 2-D (rows, C)
+    laid out as shp=(n, D, W, G) x channels; -> (n, O).  ``fc0_shift`` is
+    an optional fc0 pre-activation shift: flat ``(fc0_out,)`` or per
+    block ``(nblk, fc0_out)`` (rows are block-innermost)."""
+    for wk, b, k in aux["hstages"][1:]:
+        h = celu(h.reshape(-1, wk.shape[0]) @ wk + b)
+        shp = shp[:3] + (shp[3] // k,)
+    wk, b, kw = aux["wstage"]
+    h = h.reshape(shp + (-1,)).permute(0, 1, 3, 2, 4)  # (n, D, H, W, C)
+    h = celu(h.reshape(-1, wk.shape[0]) @ wk + b)
+    h = h.reshape(n, -1)                               # (d, h, w, c) flatten
+    fcs = aux["fcs"]
+    for i, (fw, fb) in enumerate(fcs):
+        h = h @ fw + fb
+        if i == 0 and fc0_shift is not None:
+            if fc0_shift.dim() == 2:
+                nblk, f = fc0_shift.shape
+                h = (h.reshape(-1, nblk, f) + fc0_shift).reshape(n, f)
+            else:
+                h = h + fc0_shift
+        if i < len(fcs) - 1:
+            h = celu(h)
+    return h
+
+
+def dual_rail_stage1(g0k, celu0k, y0, w0v, w1k, u, pos):
+    """Stage 0+1 of the single-pass dual-rail factorization.
+
+    u, pos: (..., G, k1) magnitude drive / positive-rail mask, shaped to
+    broadcast against ``g0k[kk]``.  y0: (R, O1).  Returns the two rails'
+    stage-1 pre-activations ``(y0 + t_pos, y0 + t_full - t_pos)`` stacked:
+    (2, batch, R, O1)."""
+    k1, C0, O1 = w1k.shape
+    R = y0.shape[0]
+    t_full = t_pos = None
+    for kk in range(k1):
+        v0 = u[..., kk, None] * w0v
+        delta = celu(v0 + g0k[kk]) - celu0k[kk]
+        t = (delta.reshape(-1, C0) @ w1k[kk]).reshape(-1, R, O1)
+        m = pos[..., kk, None].expand(delta.shape[:-1] + (1,)).reshape(-1, R, 1)
+        t_full = t if t_full is None else t_full + t
+        tp = t * m
+        t_pos = tp if t_pos is None else t_pos + tp
+    return torch.stack([y0[None] + t_pos, y0[None] + t_full - t_pos])
+
+
+def apply_blocklast(aux: dict, pre: dict, u01: torch.Tensor,
+                    pos01: torch.Tensor, *, chunk: int = 4,
+                    fc0_shift: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Single-pass dual-rail blockified forward -- the plain version of
+    the unified kernel.
+
+    u01:   (M, NB, D, H) |x|-magnitude wordline drive in [0, 1]
+    pos01: (M, NB, D, H) 1.0 where the positive rail is driven (x > 0)
+    fc0_shift: optional ``(fc0_out,)`` or ``(NB*NO, fc0_out)`` shift.
+    Returns (2, M*NB*NO, O): block outputs of the (v+, v-) rails, rows
+    M-major with the block index ``nb*NO + no`` innermost."""
+    M, NB, D, H = u01.shape
+    g0k, celu0k, y0 = pre["g0k"], pre["celu0k"], pre["y0"]
+    k1 = g0k.shape[0]
+    NO, W, G = g0k.shape[2], g0k.shape[4], g0k.shape[5]
+    mc = min(chunk, M)
+    outs = []
+    for s in range(0, M, mc):
+        uc = u01[s:s + mc]
+        n = uc.shape[0]
+        if n < mc:      # pad the last chunk like the reference's lax.map
+            uc = F.pad(uc, (0, 0, 0, 0, 0, 0, 0, mc - n))
+        pc = pos01[s:s + mc]
+        if pc.shape[0] < mc:
+            pc = F.pad(pc, (0, 0, 0, 0, 0, 0, 0, mc - n))
+        ug = uc.reshape(mc, NB, 1, D, 1, G, k1)
+        pg = pc.reshape(mc, NB, 1, D, 1, G, k1)
+        h = celu(dual_rail_stage1(g0k, celu0k, y0, aux["w0v"], aux["w1k"],
+                                  ug, pg))
+        n2 = 2 * mc * NB * NO                         # h: (2, mc, R, O1)
+        h = _tail_stages(aux, h.reshape(n2, -1), n2, (n2, D, W, G),
+                         fc0_shift=fc0_shift)
+        outs.append(h.reshape(2, mc * NB * NO, -1)[:, :n * NB * NO])
+    return torch.cat(outs, dim=1)

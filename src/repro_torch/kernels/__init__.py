@@ -1,0 +1,2 @@
+"""Kernels written by hand for Hopper, each beside its plain PyTorch
+version (ROADMAP Queue B)."""

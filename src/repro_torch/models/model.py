@@ -1,0 +1,178 @@
+"""Full model: embeddings -> period-stacked decoder stack -> final norm ->
+LM head, with prefill and decode entry points (port of
+``repro.models.model``).
+
+Layers group into the arch's repeating ``pattern`` period.  The
+parameters of the ``num_periods`` full periods are stacked on a leading
+axis (``decoder.scan.p{i}``, as in the reference); the reference's
+``lax.scan`` over periods is a Python loop here.  Remainder layers are
+the unrolled tail (``decoder.tail.t{i}``).
+"""
+from __future__ import annotations
+
+import contextlib
+from typing import Any, Dict
+
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models.blocks import apply_layer, layer_schema, layer_cache_schema
+from repro_torch.models.common import (ParamSchema, apply_norm, einsum,
+                                       norm_schema, scan_states_provider,
+                                       stack_schema)
+
+NEG_INF = -1e30
+
+
+def model_schema(cfg: ArchConfig) -> Dict[str, Any]:
+    d, vp = cfg.d_model, cfg.padded_vocab
+    if cfg.frontend != "none" or cfg.encoder_layers \
+            or not cfg.tie_embeddings or cfg.logit_softcap:
+        raise NotImplementedError(f"{cfg.name}: frontends, encoders, untied "
+                                  "heads and logit softcaps are not ported "
+                                  "yet (ROADMAP A9)")
+    s: Dict[str, Any] = {
+        "embed": ParamSchema((vp, d), "embed", d ** -0.5),
+        "final_norm": norm_schema(d, cfg.norm),
+    }
+    scan: Dict[str, Any] = {}
+    if cfg.num_periods > 0:
+        for i, kind in enumerate(cfg.pattern):
+            scan[f"p{i}"] = stack_schema(layer_schema(cfg, kind),
+                                         cfg.num_periods)
+    tail = {f"t{i}": layer_schema(cfg, kind)
+            for i, kind in enumerate(cfg.tail_kinds)}
+    s["decoder"] = {"scan": scan, "tail": tail}
+    return s
+
+
+def model_cache_schema(cfg: ArchConfig, batch: int, s_max: int, *,
+                       dtype=None):
+    """{scan: {p_i: stacked cache schema}, tail: {t_i: ...}} of
+    (shape, dtype) leaves."""
+    def stack_leaf(node, n):
+        if isinstance(node, tuple):
+            return ((n,) + tuple(node[0]), node[1])
+        return {k: stack_leaf(v, n) for k, v in node.items()}
+
+    scan = {}
+    if cfg.num_periods > 0:
+        for i, kind in enumerate(cfg.pattern):
+            scan[f"p{i}"] = stack_leaf(
+                layer_cache_schema(cfg, kind, batch, s_max, dtype=dtype),
+                cfg.num_periods)
+    tail = {f"t{i}": layer_cache_schema(cfg, kind, batch, s_max, dtype=dtype)
+            for i, kind in enumerate(cfg.tail_kinds)}
+    return {"scan": scan, "tail": tail}
+
+
+def zeros_cache(cache_schema, device):
+    if isinstance(cache_schema, tuple):
+        return torch.zeros(cache_schema[0], dtype=cache_schema[1],
+                           device=device)
+    return {k: zeros_cache(v, device) for k, v in cache_schema.items()}
+
+
+def _select(tree, p):
+    if isinstance(tree, dict):
+        return {k: _select(v, p) for k, v in tree.items()}
+    return tree[p]
+
+
+def _stack(trees):
+    if isinstance(trees[0], dict):
+        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
+    return torch.stack(trees)
+
+
+def _run_stack(stack_params, x, *, cfg: ArchConfig, pcfg, pattern,
+               tail_kinds, mode, caches, pos, positions,
+               scan_group: str = "dec"):
+    """Stacked periods (a Python loop) + unrolled tail.  Returns
+    (x, new_caches).  Decode updates the caches in place; its returned
+    tree holds the same tensors.  A site-keying provider installed with
+    ``use_scan_states`` sees each period announced, so analog call sites
+    are keyed ``"{scan_group}.{p}:{tag}#{j}"`` as in the reference."""
+    provider = scan_states_provider()
+    new_caches: Dict[str, Any] = {"scan": {}, "tail": {}}
+    scan_params = stack_params["scan"]
+    if scan_params:
+        n = next(iter(scan_params.values()))["norm1"]["w"].shape[0]
+        per = []
+        for p in range(n):
+            lp = _select(scan_params, p)
+            ncs = {}
+            scope = (provider.scan_period(scan_group, p)
+                     if provider is not None else contextlib.nullcontext())
+            with scope:
+                for i, kind in enumerate(pattern):
+                    lc = (_select(caches["scan"][f"p{i}"], p)
+                          if mode == "decode" else None)
+                    x, nc = apply_layer(lp[f"p{i}"], x, cfg=cfg, pcfg=pcfg,
+                                        kind=kind, mode=mode, cache=lc,
+                                        pos=pos, positions=positions)
+                    if nc is not None:
+                        ncs[f"p{i}"] = nc
+            per.append(ncs)
+        if mode == "prefill":
+            new_caches["scan"] = _stack(per)
+        elif mode == "decode":
+            new_caches["scan"] = caches["scan"]
+    for i, kind in enumerate(tail_kinds):
+        lc = caches["tail"].get(f"t{i}") if mode == "decode" else None
+        x, nc = apply_layer(stack_params["tail"][f"t{i}"], x, cfg=cfg,
+                            pcfg=pcfg, kind=kind, mode=mode, cache=lc,
+                            pos=pos, positions=positions)
+        if nc is not None:
+            new_caches["tail"][f"t{i}"] = nc
+    return x, new_caches
+
+
+def embed_tokens(params, tokens, cfg: ArchConfig, compute_dtype):
+    x = params["embed"][tokens].to(compute_dtype)
+    if cfg.emb_scale:
+        # the scale is cast to the compute dtype first, as in the reference
+        x = x * torch.tensor(cfg.d_model ** 0.5, dtype=compute_dtype,
+                         device=x.device)
+    return x
+
+
+def forward(params, tokens, *, cfg: ArchConfig, pcfg, mode: str = "train",
+            cache=None, pos=None, compute_dtype=torch.bfloat16):
+    """Returns (hidden (B,S,D), new_cache_or_None)."""
+    x = embed_tokens(params, tokens, cfg, compute_dtype)
+    positions = (None if mode == "decode" else
+                 torch.arange(tokens.shape[1], device=tokens.device)[None, :])
+    x, new_caches = _run_stack(
+        params["decoder"], x, cfg=cfg, pcfg=pcfg, pattern=cfg.pattern,
+        tail_kinds=cfg.tail_kinds, mode=mode, caches=cache, pos=pos,
+        positions=positions)
+    x = apply_norm(params["final_norm"], x, cfg.norm)
+    return x, (new_caches if mode in ("prefill", "decode") else None)
+
+
+def compute_logits(params, h, cfg: ArchConfig):
+    """h: (B,S,D) -> logits (B,S,Vp) fp32 from the tied embedding, padded
+    vocab masked."""
+    logits = einsum("bsd,vd->bsv", h, params["embed"].to(h.dtype)).float()
+    if cfg.padded_vocab != cfg.vocab_size:
+        mask = torch.arange(cfg.padded_vocab, device=h.device) >= cfg.vocab_size
+        logits = torch.where(mask[None, None, :], NEG_INF, logits)
+    return logits
+
+
+def prefill(params, tokens, *, cfg: ArchConfig, pcfg,
+            compute_dtype=torch.bfloat16):
+    """Returns (last-position logits (B,Vp), cache)."""
+    h, cache = forward(params, tokens, cfg=cfg, pcfg=pcfg, mode="prefill",
+                       compute_dtype=compute_dtype)
+    return compute_logits(params, h[:, -1:], cfg)[:, 0], cache
+
+
+def decode_step(params, token, cache, pos, *, cfg: ArchConfig, pcfg,
+                compute_dtype=torch.bfloat16):
+    """token: (B,1) int64; pos: int -- the position being written.
+    Returns (logits (B,Vp), cache) -- the cache is updated in place."""
+    h, new_cache = forward(params, token, cfg=cfg, pcfg=pcfg, mode="decode",
+                           cache=cache, pos=pos, compute_dtype=compute_dtype)
+    return compute_logits(params, h, cfg)[:, 0], new_cache
