@@ -25,9 +25,9 @@ ATTN_KINDS = (GLOBAL_ATTN, LOCAL_ATTN, CHUNKED_ATTN, BIDIR_ATTN)
 class AnalogConfig:
     """SEMULATOR analog-crossbar execution of matmuls.
 
-    backend: ``digital`` (plain matmul) or ``emulator`` (the Conv4Xbar
-    regression net).  The ``analytic`` and ``circuit`` backends of the
-    reference are not ported yet (ROADMAP A7)."""
+    backend: ``digital`` (plain matmul), ``emulator`` (the Conv4Xbar
+    regression net), ``circuit`` (the Newton-Raphson 1T1R solver) or
+    ``analytic`` (the linear expert model)."""
     enabled: bool = False
     backend: str = "emulator"
     rows: int = 64                     # crossbar wordlines per tile

@@ -1,14 +1,27 @@
 """AnalogExecutor: dense projections on emulated crossbar hardware (port of
-``repro.core.analog`` for the emulator backend at the ideal corner).
+``repro.core.analog`` at the ideal corner).
 
 Weights are tiled onto differential 1T1R crossbars (``core.crossbar``);
 activations drive the wordlines dual-rail (v+ = relu(x), v- = relu(-x));
 blocks of D tiles accumulate in analog, block groups sum digitally; an
-affine calibration maps volts back to logical units.  The emulator
-evaluates both rails of every block in one pass
-(``kernels.emulator_block.emulator_block_unified``: the CUDA kernel for
-CUDA tensors, its plain version for CPU tensors).  The backward pass is
-the straight-through digital gradient (``_STMatmul``).
+affine calibration (``calibrate``) maps volts back to logical units.  The
+backward pass is the straight-through digital gradient (``_STMatmul``).
+
+Backends and routes (``raw_matmul``):
+  * emulator, ``fast_path=True``: both rails of every block in one pass
+    (``kernels.emulator_block.emulator_block_unified``, B1);
+  * emulator, ``fast_path=False`` -- the paper-faithful slow path: the
+    rails stacked on the batch axis, each (row, block) through the
+    Conv4Xbar network (``_eval_blocks``): B3 (``emulator_block_grid``)
+    on the drive and the plan's shared conductances, or, for a
+    scenario-conditioned net given scenario features, B2
+    (``emulator_block``) on the ``build_x`` block tensors with their
+    periph;
+  * circuit and analytic: the rail-stacked ``build_x`` block tensors
+    through ``circuit.block_response`` / ``analytic_block_response`` in
+    plain PyTorch (the reference has no kernel for them).
+Every kernel route runs its CUDA kernel for CUDA tensors and its plain
+version for CPU tensors.
 
 What the reference computes per call, this port computes per call too:
 the conductance plan is cached per (tag, weight), the emulator weights'
@@ -17,8 +30,8 @@ repack per params binding, and the per-block precompute
 reference's serving trace.
 
 Not in this slice (each raises ``NotImplementedError`` naming its
-ROADMAP item): the circuit/analytic backends (A7), non-ideal corners,
-read noise, remapping and ``deploy(...)`` (A8), calibration (A5).
+ROADMAP item): non-ideal corners, read noise, remapping and
+``deploy(...)`` (A8).
 """
 from __future__ import annotations
 
@@ -30,10 +43,16 @@ import torch
 from repro_torch.configs.base import AnalogConfig
 from repro_torch.configs.rram_ps32 import BlockGeometry, CASE_A
 from repro_torch.core import conv4xbar
-from repro_torch.core.circuit import CircuitParams
+from repro_torch.core.analytic import analytic_block_response
+from repro_torch.core.circuit import CircuitParams, block_response
 from repro_torch.core.crossbar import ConductancePlan, build_conductance_plan
 from repro_torch.core.deployment import DeploymentState
-from repro_torch.kernels.emulator_block import emulator_block_unified
+from repro_torch.core.emulator import normalize_features
+from repro_torch.kernels.emulator_block import (emulator_block_grid,
+                                                emulator_block_unified)
+from repro_torch.kernels.emulator_block.ops import emulator_block
+
+BACKENDS = ("digital", "emulator", "circuit", "analytic")
 
 
 class _STMatmul(torch.autograd.Function):
@@ -118,14 +137,18 @@ class AnalogExecutor:
 
     Owns, per weight ``tag``: the cached conductance plan and the ideal
     ``DeploymentState``.  ``emulator_params`` are tensors on the device
-    the matmuls run on."""
+    the matmuls run on.  ``fast_path`` picks the emulator's route (see
+    the module docstring).  The reference's ``fused_emulator`` has no
+    counterpart: the port's slow path runs the paper-faithful network,
+    which the reference holds bit-equal to its fused rewrite."""
 
     def __init__(self, acfg: AnalogConfig, geom: BlockGeometry = CASE_A,
                  cp: Optional[CircuitParams] = None,
                  emulator_params: Optional[dict] = None,
-                 calibration: Optional[Dict[str, tuple]] = None):
-        if acfg.backend not in ("digital", "emulator"):
-            raise _not_ported(f"the {acfg.backend!r} backend", "A7")
+                 calibration: Optional[Dict[str, tuple]] = None,
+                 fast_path: bool = True):
+        if acfg.backend not in BACKENDS:
+            raise ValueError(f"unknown analog backend {acfg.backend!r}")
         if acfg.scenario:
             raise _not_ported(f"scenario {acfg.scenario!r}", "A8")
         if acfg.backend == "emulator" and emulator_params is None:
@@ -135,19 +158,56 @@ class AnalogExecutor:
         self.cp = cp if cp is not None else CircuitParams()
         self.emulator_params = emulator_params
         self.calibration: Dict[str, tuple] = dict(calibration or {})
+        self.fast_path = fast_path
         self._plans: Dict[str, Tuple[torch.Tensor, ConductancePlan]] = {}
         self._states: Dict[str, Tuple[ConductancePlan, DeploymentState]] = {}
         self._aux = None
         self._aux_src = None
         self._binding: Optional[_StateBinding] = None
+        self._last_calib_n = 0
 
     # ------------------------------------------------------------------ #
     def deploy(self, **kw):
         raise _not_ported("deploy(...) (non-ideal corners, aging, remapping, "
                           "hot-swapped params)", "A8")
 
-    def calibrate(self, *a, **kw):
-        raise _not_ported("calibration", "A5")
+    @torch.no_grad()
+    def calibrate(self, xc: torch.Tensor, w: torch.Tensor, tag: str,
+                  warm_start: bool = False) -> Tuple[float, float]:
+        """Fit the per-layer affine volts->logical map against digital on
+        the probe matrix ``xc`` (n, K), through the same forward the
+        tag's matmuls run, at unit affine.
+
+        The reference draws ``xc`` itself (``normal * 0.5``, 256 rows
+        cold, 128 warm); here the caller passes it, so both packages can
+        fit on the same probes.  Read noise is not ported (A8), so one
+        draw is the expected transfer.  ``warm_start=True`` transfers
+        the previous affine: a ridge prior toward it, one synthetic row
+        per parameter weighted at ~5% of the probes' leverage on that
+        parameter (sum yv^2 for the scale, the row count for the
+        offset); without a previous affine the fit is cold.  The probe
+        count used is recorded in ``_last_calib_n``."""
+        prev = self.calibration.get(tag) if warm_start else None
+        xc = xc.float()
+        st = self._base_state(tag, w)         # unit affine by construction
+        ys = _STMatmul.apply(self, tag, xc, w, st)
+        xs = torch.clamp_min(torch.max(torch.abs(xc)), 1e-9)
+        yv_flat = (ys / xs).reshape(-1)
+        yd_flat = ((xc @ w.float()) / xs).reshape(-1)
+        A = torch.stack([yv_flat, torch.ones_like(yv_flat)], dim=1)
+        rhs = yd_flat
+        if prev is not None:
+            la = torch.sqrt(0.05 * torch.sum(yv_flat * yv_flat) + 1e-12)
+            lb = torch.sqrt(torch.tensor(0.05 * yv_flat.shape[0],
+                                         device=A.device))
+            prior = torch.zeros((2, 2), device=A.device)
+            prior[0, 0], prior[1, 1] = la, lb
+            A = torch.cat([A, prior], dim=0)
+            rhs = torch.cat([rhs, torch.stack([la * prev[0], lb * prev[1]])])
+        sol = torch.linalg.lstsq(A, rhs[:, None]).solution[:, 0]
+        self.calibration[tag] = (float(sol[0]), float(sol[1]))
+        self._last_calib_n = xc.shape[0]
+        return self.calibration[tag]
 
     # ------------------------------------------------------------------ #
     def _plan_for(self, w: torch.Tensor, tag: str) -> ConductancePlan:
@@ -171,17 +231,21 @@ class AnalogExecutor:
             self._aux_src = params
         return self._aux
 
-    def state_for(self, tag: str, w: torch.Tensor) -> DeploymentState:
-        """The ideal state for ``(tag, w)``, stamped with the tag's
-        calibration affine (unit by default)."""
+    def _base_state(self, tag: str, w: torch.Tensor) -> DeploymentState:
+        """The ideal state for ``(tag, w)`` at unit affine, cached per plan."""
         plan = self._plan_for(w, tag)
         ent = self._states.get(tag)
         if ent is None or ent[0] is not plan:
             ep = self.emulator_params if self.acfg.backend == "emulator" else None
             ent = (plan, DeploymentState.ideal(plan, eparams=ep))
             self._states[tag] = ent
+        return ent[1]
+
+    def state_for(self, tag: str, w: torch.Tensor) -> DeploymentState:
+        """The ideal state for ``(tag, w)``, stamped with the tag's
+        calibration affine (unit by default)."""
         a, b = self.calibration.get(tag, (1.0, 0.0))
-        return ent[1].with_calibration(a, b)
+        return self._base_state(tag, w).with_calibration(a, b)
 
     def _ideal_read(self, g: torch.Tensor) -> torch.Tensor:
         """The reference's read-noise draw at sigma 0: an exact identity
@@ -201,6 +265,76 @@ class AnalogExecutor:
                            torch.zeros_like(u01))
 
     # ------------------------------------------------------------------ #
+    def _emulator_params(self, eparams: Optional[dict]) -> dict:
+        return self.emulator_params if eparams is None else eparams
+
+    def _backend_fn(self, eparams: Optional[dict] = None):
+        """Block-response function ``f(x, periph)`` of the configured
+        backend on raw-feature block tensors; ``eparams`` overrides the
+        executor's emulator params."""
+        b = self.acfg.backend
+        cp = self.cp
+        if b == "circuit":
+            return lambda x, p: block_response(x, cp, p)
+        if b == "analytic":
+            return lambda x, p: analytic_block_response(x, cp, p)
+        if b == "emulator":
+            params = self._emulator_params(eparams)
+            return lambda x, p: emulator_block(
+                params, normalize_features(x, self.acfg), p, self.geom)
+        raise ValueError(b)
+
+    def block_outputs(self, x: torch.Tensor, eparams: Optional[dict] = None,
+                      sfeat: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """x: (NBLK, 2, D, H, W) raw-feature block tensors -> (NBLK, O).
+
+        The peripheral vector is the serving constant (gain 1, offset 0);
+        a scenario-conditioned emulator's is widened with the scenario
+        features (``sfeat=None``: the ideal corner's zeros; a per-tile
+        ``(NB, NO, F)`` sfeat is tiled over the batch rows, whose blocks
+        are lattice-innermost)."""
+        n = x.shape[0]
+        periph = torch.cat([torch.ones((n, 1), dtype=x.dtype, device=x.device),
+                            torch.zeros((n, 1), dtype=x.dtype, device=x.device)],
+                           dim=-1)
+        if self.acfg.backend == "emulator":
+            npf = conv4xbar.n_periph_of(self._emulator_params(eparams), self.geom)
+            if npf > 2:
+                if sfeat is None:
+                    tail = torch.zeros((n, npf - 2), dtype=x.dtype,
+                                       device=x.device)
+                elif sfeat.dim() >= 2:
+                    t2 = sfeat.reshape(-1, sfeat.shape[-1]).to(x.dtype)
+                    tail = t2.repeat(n // t2.shape[0], 1)
+                else:
+                    tail = sfeat.to(x.dtype)[None].expand(n, npf - 2)
+                periph = torch.cat([periph, tail], dim=-1)
+        return self._backend_fn(eparams)(x, periph)
+
+    def _eval_blocks(self, plan: ConductancePlan, vb01: torch.Tensor,
+                     eparams: Optional[dict] = None,
+                     sfeat: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """vb01: (M, NB, D, H) wordline drive in [0, 1] -> (M*NB*NO, no).
+
+        The emulator goes to B3 on the drive and the plan's shared
+        conductances, unless a conditioned net is given scenario features
+        (its periph then varies with them: B2 on the block tensors).  B3
+        gets the V channel the reference's block tensors carry,
+        ``(vb01 * v_read) / v_read``; its G channel is the plan's
+        ``g_norm``, the same normalization of the same conductances."""
+        if self.acfg.backend == "emulator":
+            params = self._emulator_params(eparams)
+            if sfeat is None or conv4xbar.n_periph_of(params, self.geom) <= 2:
+                vr = torch.tensor(self.acfg.v_read, dtype=vb01.dtype,
+                                  device=vb01.device)
+                g = plan.g_norm.float().reshape(
+                    plan.n_blocks, plan.D, plan.rows, 2 * plan.no)
+                y = emulator_block_grid(params, ((vb01 * vr) / vr).contiguous(),
+                                        g.contiguous(), self.geom)
+                return y.reshape(-1, y.shape[-1])
+        x = plan.build_x(vb01 * self.acfg.v_read)
+        return self.block_outputs(x.float(), eparams, sfeat)
+
     def raw_matmul(self, x2d: torch.Tensor, w: torch.Tensor, tag: str = "",
                    plan: Optional[ConductancePlan] = None,
                    eparams: Optional[dict] = None,
@@ -208,23 +342,30 @@ class AnalogExecutor:
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Analog forward for (B,K) @ (K,N), in volts (uncalibrated), and
         the drive scale ``max|x|`` of the whole call."""
-        if self.acfg.backend != "emulator":
-            raise _not_ported(f"the {self.acfg.backend!r} analog forward", "A7")
+        if self.acfg.backend == "digital":
+            raise ValueError("the digital backend has no analog forward")
         if plan is None:
             plan = self._plan_for(w, tag)
+        B = x2d.shape[0]
         x2d = x2d.float()
         x_scale = torch.clamp_min(torch.max(torch.abs(x2d)), 1e-9)
-        aux = self._blocklast_aux(eparams)
-        pre = conv4xbar.blocklast_precompute(aux, plan.g_norm)
-        shift = None
-        if sfeat is not None and "f0_scen" in aux:
-            shift = sfeat @ aux["f0_scen"]
-        u = plan.tile_v(self._drive01(torch.abs(x2d) / x_scale), 1.0)
-        pos = plan.tile_v((x2d > 0).float(), 1.0)
-        y2 = emulator_block_unified(aux, pre, u.contiguous(),
-                                    pos.contiguous(), shift=shift)
-        del pre
-        return plan.assemble(y2[0]) - plan.assemble(y2[1]), x_scale
+        if self.acfg.backend == "emulator" and self.fast_path:
+            aux = self._blocklast_aux(eparams)
+            pre = conv4xbar.blocklast_precompute(aux, plan.g_norm)
+            shift = None
+            if sfeat is not None and "f0_scen" in aux:
+                shift = sfeat @ aux["f0_scen"]
+            u = plan.tile_v(self._drive01(torch.abs(x2d) / x_scale), 1.0)
+            pos = plan.tile_v((x2d > 0).float(), 1.0)
+            y2 = emulator_block_unified(aux, pre, u.contiguous(),
+                                        pos.contiguous(), shift=shift)
+            del pre
+            return plan.assemble(y2[0]) - plan.assemble(y2[1]), x_scale
+        rails = torch.cat([torch.clamp_min(x2d, 0.0),
+                           torch.clamp_min(-x2d, 0.0)], dim=0)
+        vb01 = plan.tile_v(self._drive01(rails / x_scale), 1.0)  # (2B,NB,D,H)
+        y = plan.assemble(self._eval_blocks(plan, vb01.float(), eparams, sfeat))
+        return y[:B] - y[B:], x_scale
 
     def matmul(self, x: torch.Tensor, w: torch.Tensor, tag: str = "",
                state: Optional[DeploymentState] = None) -> torch.Tensor:

@@ -133,6 +133,18 @@ class ConductancePlan:
             vt = F.pad(vt, (0, 0, 0, padT))
         return vt.reshape(M, self.NB, self.D, self.rows)
 
+    def build_x(self, vb: torch.Tensor) -> torch.Tensor:
+        """vb: (M, NB, D, H) volts -> (M*NB*NO, 2, D, H, W) raw block-feature
+        tensors (the layout the circuit/analytic backends and the
+        paper-faithful emulator consume); rows M-major, block innermost."""
+        M = vb.shape[0]
+        shp = (M, self.NB, self.NO, self.D, self.rows, 2 * self.no)
+        dt = torch.promote_types(vb.dtype, self.g_feat.dtype)
+        v = vb.to(dt)[:, :, None, :, :, None].expand(shp)
+        g = self.g_feat.to(dt)[None].expand(shp)
+        x = torch.stack([v, g], dim=3)                # (M, NB, NO, 2, D, H, W)
+        return x.reshape(M * self.n_blocks, 2, self.D, self.rows, 2 * self.no)
+
     def assemble(self, outs: torch.Tensor) -> torch.Tensor:
         """(M*NB*NO, no) block outputs -> (M, N) digital block-group sum."""
         M = outs.shape[0] // self.n_blocks

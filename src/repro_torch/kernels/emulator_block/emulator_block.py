@@ -1,21 +1,30 @@
-"""The unified Conv4Xbar block evaluator: a CUDA C++ kernel for Hopper and
+"""The Conv4Xbar block evaluators: CUDA C++ kernels for Hopper, each with
 its plain PyTorch version.
 
-``emulator_block_unified_cuda`` replaces the JAX package's
-``kernels/emulator_block/emulator_block.py:emulator_block_unified_pallas``:
-one launch per analog matmul evaluates both rails of every (row, crossbar
-block) pair -- stage-1 window contraction, tail convs, W-stage, FC head
-and the optional fc0 shift (the source note in
-``csrc/emulator_block_unified.cu`` says what bounds it and how the design
-answers).  ``emulator_block_unified_plain`` is the same function in plain
-PyTorch (``conv4xbar.apply_blocklast``); the CPU tests use it and the
-card run compares the kernel against it.
+* ``emulator_block_unified_cuda`` (B1) replaces the JAX package's
+  ``kernels/emulator_block/emulator_block.py:emulator_block_unified_pallas``:
+  one launch per analog matmul evaluates both rails of every (row,
+  crossbar block) pair -- stage-1 window contraction, tail convs,
+  W-stage, FC head and the optional fc0 shift
+  (``csrc/emulator_block_unified.cu``).  Its plain version is
+  ``conv4xbar.apply_blocklast``.
+* ``emulator_block_cuda`` (B2) replaces ``emulator_block_pallas``: the
+  paper-faithful network on full (N, 2, D, H, W) features with a
+  per-block periph.  Its plain version is ``conv4xbar.apply``.
+* ``emulator_block_grid_cuda`` (B3) replaces ``emulator_block_grid_pallas``:
+  the same network per (row, crossbar block), the (V, G) stack built on
+  chip from the rows' drive and the blocks' shared conductances, periph
+  (1, 0, ...).  Its plain version builds the broadcast stack in chunks of
+  blocks and calls ``conv4xbar.apply``.
+  B2 and B3 share one network in ``csrc/emulator_block.cu``.
 
-The kernel is compiled from ``csrc/`` with ``nvcc`` at first use into
-``build/`` beside this file (a gitignored directory), as a shared library
-with a plain C interface loaded through ``ctypes``.  Nothing is compiled
-or loaded at import time, so this module imports on a machine without
-``nvcc`` or a card.
+Each source note says what bounds its kernel and how the design answers.
+The CPU tests use the plain versions; the card run compares each kernel
+with its plain version.  Each kernel is compiled from ``csrc/`` with
+``nvcc`` at first use into ``build/`` beside this file (a gitignored
+directory), one shared library with a plain C interface per source,
+loaded through ``ctypes``.  Nothing is compiled or loaded at import time,
+so this module imports on a machine without ``nvcc`` or a card.
 """
 from __future__ import annotations
 
@@ -26,14 +35,17 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
-from typing import Optional, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
+from repro_torch.configs.rram_ps32 import BlockGeometry
+from repro_torch.core import conv4xbar
 from repro_torch.core.conv4xbar import apply_blocklast
 
 _HERE = Path(__file__).resolve().parent
-SOURCE = _HERE / "csrc" / "emulator_block_unified.cu"
+SOURCE = _HERE / "csrc" / "emulator_block_unified.cu"      # B1
+BLOCK_SOURCE = _HERE / "csrc" / "emulator_block.cu"         # B2, B3
 BUILD_DIR = _HERE / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -60,39 +72,68 @@ def _nvcc() -> str:
         if cand.exists():
             path = str(cand)
     if path is None:
-        raise RuntimeError("nvcc not found: the unified emulator kernel is "
-                           "built from source on a machine with the CUDA "
-                           "toolkit")
+        raise RuntimeError("nvcc not found: the emulator kernels are built "
+                           "from source on a machine with the CUDA toolkit")
     return path
 
 
-def build() -> Tuple[Path, str]:
-    """Compile the kernel library (once per source version); returns its
-    path and the compiler's output (``-Xptxas -v``: registers, spills)."""
-    src = SOURCE.read_bytes()
-    tag = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    lib = BUILD_DIR / f"libemulator_block_unified_{tag}.so"
-    if lib.exists():
-        return lib, ""
+def _lib_path(source: Path) -> Path:
+    tag = hashlib.sha1(source.read_bytes()
+                       + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    return BUILD_DIR / f"lib{source.stem}_{tag}.so"
+
+
+def build_all(sources: Sequence[Path] = (SOURCE, BLOCK_SOURCE)
+              ) -> Dict[Path, Tuple[Path, str]]:
+    """Compile each source's library (once per source version), one
+    ``nvcc`` per source, all started together.  Returns ``source ->
+    (library path, compiler output)``; the output (``-Xptxas -v``:
+    registers, shared memory, spills) is empty for a library already
+    built.  Raises if any compile fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
+    done, running = {}, {}
     try:
-        res = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, str(SOURCE)],
-                             capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
-                               f"{res.stdout}\n{res.stderr}")
-        os.replace(tmp, lib)
+        for src in sources:
+            lib = _lib_path(src)
+            if lib.exists():
+                done[src] = (lib, "")
+                continue
+            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+            os.close(fd)
+            proc = subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-o", tmp, str(src)],
+                                    stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT, text=True)
+            running[src] = (proc, tmp, lib)
+        failed = []
+        for src, (proc, tmp, lib) in running.items():
+            log, _ = proc.communicate()
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed on {src.name} ({proc.returncode}):"
+                              f"\n{log}")
+                continue
+            os.replace(tmp, lib)
+            done[src] = (lib, log)
+        if failed:
+            raise RuntimeError("\n".join(failed))
     finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    return lib, res.stdout + res.stderr
+        for proc, tmp, _ in running.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            if os.path.exists(tmp):
+                os.unlink(tmp)
+    return done
+
+
+def build(source: Path = SOURCE) -> Tuple[Path, str]:
+    """Compile one source's library; returns its path and the compiler's
+    output (see ``build_all``)."""
+    return build_all((source,))[source]
 
 
 def _library():
     if "fn" not in _LIB:
-        path, _ = build()
+        path, _ = build(SOURCE)
         fn = ctypes.CDLL(str(path)).emulator_block_unified_f32
         fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 6
                        + [ctypes.c_int, ctypes.POINTER(_Weights),
@@ -220,3 +261,217 @@ def emulator_block_unified_plain(aux: dict, pre: dict, u01: torch.Tensor,
     ``conv4xbar.apply_blocklast``.  Returns (2, M*NB*NO, O)."""
     return apply_blocklast(aux, pre, u01, pos01, chunk=chunk,
                            fc0_shift=shift)
+
+
+# --------------------------------------------------------------------------- #
+# B2 and B3: the paper-faithful network per crossbar block
+# --------------------------------------------------------------------------- #
+# (D, W, O) -> template id of the C entry points; H is 64 in both
+_NET_GEOMS = {(4, 2, 1): 0, (2, 8, 4): 1}
+# conv{i}_w shapes of build_stages at H = 64 (conv4's depends on nothing)
+_CONV_SHAPES = ((16, 2, 1, 1, 1), (8, 16, 1, 2, 1), (4, 8, 1, 4, 1),
+                (32, 4, 1, 8, 1), (32, 32, 1, 1, 2))
+
+
+def _block_library():
+    if "block" not in _LIB:
+        lib = ctypes.CDLL(str(build(BLOCK_SOURCE)[0]))
+        lib.emulator_block_f32.argtypes = (
+            [ctypes.c_int] + [ctypes.c_void_p] * 3
+            + [ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+               ctypes.c_void_p])
+        lib.emulator_block_grid_f32.argtypes = (
+            [ctypes.c_int] + [ctypes.c_void_p] * 3
+            + [ctypes.c_int, ctypes.c_void_p] + [ctypes.c_int] * 4
+            + [ctypes.c_void_p])
+        lib.emulator_block_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
+        for f in (lib.emulator_block_f32, lib.emulator_block_grid_f32,
+                  lib.emulator_block_smem_bytes):
+            f.restype = ctypes.c_int
+        _LIB["block"] = lib
+    return _LIB["block"]
+
+
+def pack_net_weights(params: dict, geom: BlockGeometry
+                     ) -> Tuple[torch.Tensor, int, int]:
+    """The network's weights in the order ``csrc/emulator_block.cu``
+    (``Net``) reads them, as one float32 vector on the params' device:
+    stage-0 (w0v, w0g, b0), each row-window stage as (k*C_in, C_out) and
+    its bias, the W-stage likewise, fc0's bias, fc1, fc2, then fc0's rows
+    -- the flatten rows in channels-last (d, w, c) order, then the P
+    periph rows.  Returns (weights, geometry id, P); raises on a network
+    or geometry the kernels do not take."""
+    gid = _NET_GEOMS.get((geom.tiles, geom.cols, geom.outputs))
+    if gid is None or (geom.features, geom.rows) != (2, 64):
+        raise ValueError(f"unsupported block geometry {geom}")
+    if conv4xbar._n_stages(params) != 5 or conv4xbar._n_fc(params) != 3:
+        raise ValueError("unsupported Conv4Xbar depth")
+    flat = conv4xbar.flat_features(geom)
+    n_periph = conv4xbar.n_periph_of(params, geom)
+    want = {f"conv{i}_w": s for i, s in enumerate(_CONV_SHAPES)}
+    want.update({f"conv{i}_b": (s[0],) for i, s in enumerate(_CONV_SHAPES)})
+    want.update(fc0_w=(flat + n_periph, 32), fc0_b=(32,), fc1_w=(32, 16),
+                fc1_b=(16,), fc2_w=(16, geom.outputs), fc2_b=(geom.outputs,))
+    for k, s in want.items():
+        if tuple(params[k].shape) != s:
+            raise ValueError(f"{k} has shape {tuple(params[k].shape)}, "
+                             f"expected {s}")
+    if n_periph < 0:
+        raise ValueError("fc0 has fewer rows than the conv flatten")
+
+    def window(i):            # (O, I, k) -> (k * I, O)
+        w = params[f"conv{i}_w"]
+        w = w[:, :, 0, :, 0] if i < 4 else w[:, :, 0, 0, :]
+        return w.permute(2, 1, 0)
+
+    w0 = params["conv0_w"][:, :, 0, 0, 0]
+    d, h, wd = conv4xbar.conv_out_sizes(conv4xbar.build_stages(geom),
+                                        geom.tiles, geom.rows, geom.cols)
+    f0 = params["fc0_w"]
+    f0_flat = f0[:flat].reshape(32, d, h, wd, -1).permute(1, 2, 3, 0, 4)
+    parts = [w0[:, 0], w0[:, 1], params["conv0_b"]]
+    for i in range(1, 5):
+        parts += [window(i), params[f"conv{i}_b"]]
+    parts += [params["fc0_b"], params["fc1_w"], params["fc1_b"],
+              params["fc2_w"], params["fc2_b"], f0_flat, f0[flat:]]
+    wpack = torch.cat([p.reshape(-1).float() for p in parts]).contiguous()
+    return wpack, gid, n_periph
+
+
+def block_smem_bytes(geom: BlockGeometry, n_periph: int) -> int:
+    """Dynamic shared memory one thread block of B2/B3 takes for this
+    geometry and periph width (weights, fc0 rows and activations), as the
+    compiled library reckons it; builds the library if needed."""
+    gid = _NET_GEOMS.get((geom.tiles, geom.cols, geom.outputs))
+    if gid is None:
+        raise ValueError(f"unsupported block geometry {geom}")
+    return int(_block_library().emulator_block_smem_bytes(gid, n_periph))
+
+
+def default_block_n(N: int) -> int:
+    """Crossbar blocks per thread block of B2: at least ~1,000 thread
+    blocks for a few thousand blocks, at most 32 blocks each."""
+    return max(1, min(32, N // 1024))
+
+
+def _launched(err: int, name: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed (cudaError {err})")
+
+
+def emulator_block_cuda(params: dict, x: torch.Tensor,
+                        periph: Optional[torch.Tensor], geom: BlockGeometry,
+                        *, block_n: Optional[int] = None) -> torch.Tensor:
+    """Launch B2 on CUDA tensors; raises on anything it does not take.
+    x: (N, 2, D, H, W) normalized features; periph: (N, P), or None when
+    the net has no periph rows.  Returns (N, O) float32."""
+    if x.device.type != "cuda":
+        raise ValueError("emulator_block_cuda takes CUDA tensors (got "
+                         f"{x.device}); CPU tensors go to the plain version")
+    dev = x.device
+    wpack, gid, P = pack_net_weights(params, geom)
+    N = x.shape[0]
+    _check("x", x, (N,) + geom.chw, dev)
+    if P:
+        if periph is None:
+            raise ValueError(f"the net takes {P} periph features per block")
+        _check("periph", periph, (N, P), dev)
+    elif periph is not None and periph.numel():
+        raise ValueError("the net has no periph rows")
+    _check("weights", wpack, wpack.shape, dev)
+    bn = default_block_n(N) if block_n is None else int(block_n)
+    if bn < 1 or -(-N // bn) >= 2 ** 31:
+        raise ValueError(f"block_n={bn} gives an invalid grid for N={N}")
+    out = torch.empty((N, geom.outputs), dtype=torch.float32, device=dev)
+    if N == 0:
+        return out
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    _launched(_block_library().emulator_block_f32(
+        gid, x.data_ptr(), periph.data_ptr() if P else 0, wpack.data_ptr(), P,
+        out.data_ptr(), N, bn, stream), "emulator_block")
+    emulator_block_cuda.launches += 1
+    return out
+
+
+emulator_block_cuda.launches = 0
+
+
+def emulator_block_plain(params: dict, x: torch.Tensor,
+                         periph: Optional[torch.Tensor]) -> torch.Tensor:
+    """B2's function in plain PyTorch: ``conv4xbar.apply``."""
+    return conv4xbar.apply(params, x, periph)
+
+
+def _grid_shapes(v01: torch.Tensor, g_norm: torch.Tensor):
+    if v01.dim() != 4 or g_norm.dim() != 4:
+        raise ValueError("v01 must be (M, NB, D, H) and g_norm (NB*NO, D, H, W)")
+    M, NB = v01.shape[:2]
+    nblk = g_norm.shape[0]
+    if NB == 0 or nblk % NB:
+        raise ValueError(f"{nblk} blocks do not split into {NB} block groups")
+    return M, NB, nblk // NB
+
+
+def emulator_block_grid_cuda(params: dict, v01: torch.Tensor,
+                             g_norm: torch.Tensor, geom: BlockGeometry, *,
+                             block_m: Optional[int] = None) -> torch.Tensor:
+    """Launch B3 on CUDA tensors; raises on anything it does not take.
+    v01: (M, NB, D, H) normalized drive; g_norm: (NB*NO, D, H, W) shared
+    normalized conductances.  Returns (M, NB*NO, O) float32."""
+    if v01.device.type != "cuda":
+        raise ValueError("emulator_block_grid_cuda takes CUDA tensors (got "
+                         f"{v01.device}); CPU tensors go to the plain version")
+    dev = v01.device
+    wpack, gid, P = pack_net_weights(params, geom)
+    M, NB, NO = _grid_shapes(v01, g_norm)
+    _, D, H, W = geom.chw
+    _check("v01", v01, (M, NB, D, H), dev)
+    _check("g_norm", g_norm, (NB * NO, D, H, W), dev)
+    _check("weights", wpack, wpack.shape, dev)
+    if NB * NO >= 2 ** 31:
+        raise ValueError(f"{NB * NO} blocks exceed the grid's x dimension")
+    bm = default_block_m(M) if block_m is None else int(block_m)
+    if bm < 1 or -(-M // bm) > 65535:
+        raise ValueError(f"block_m={bm} gives an invalid grid for M={M}")
+    out = torch.empty((M, NB * NO, geom.outputs), dtype=torch.float32,
+                      device=dev)
+    if M == 0:
+        return out
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    _launched(_block_library().emulator_block_grid_f32(
+        gid, v01.data_ptr(), g_norm.data_ptr(), wpack.data_ptr(), P,
+        out.data_ptr(), M, NB, NO, bm, stream), "emulator_block_grid")
+    emulator_block_grid_cuda.launches += 1
+    return out
+
+
+emulator_block_grid_cuda.launches = 0
+
+
+def emulator_block_grid_plain(params: dict, v01: torch.Tensor,
+                              g_norm: torch.Tensor, geom: BlockGeometry, *,
+                              chunk_blocks: Optional[int] = None
+                              ) -> torch.Tensor:
+    """B3's function in plain PyTorch: the batch-broadcast (V, G) stack and
+    the constant periph (1, 0, ...) through ``conv4xbar.apply``, built for
+    ``chunk_blocks`` crossbar blocks at a time (default: about 65,536
+    (row, block) pairs per chunk).  Returns (M, NB*NO, O)."""
+    M, NB, NO = _grid_shapes(v01, g_norm)
+    nblk, D, H, W = g_norm.shape
+    P = conv4xbar.n_periph_of(params, geom)
+    cb = chunk_blocks or max(1, 65536 // max(M, 1))
+    outs = []
+    for j0 in range(0, nblk, cb):
+        j1 = min(nblk, j0 + cb)
+        nc = j1 - j0
+        nb = torch.arange(j0, j1, device=v01.device) // NO
+        shp = (M, nc, D, H, W)
+        x = torch.stack([v01[:, nb, :, :, None].expand(shp),
+                         g_norm[None, j0:j1].expand(shp)], dim=2)
+        periph = None
+        if P:
+            periph = torch.zeros((M * nc, P), dtype=x.dtype, device=x.device)
+            periph[:, 0] = 1.0
+        y = conv4xbar.apply(params, x.reshape(M * nc, 2, D, H, W), periph)
+        outs.append(y.reshape(M, nc, -1))
+    return torch.cat(outs, dim=1)

@@ -10,7 +10,8 @@ CLI:
 
 runs on the GPU (``--device cpu`` runs on the CPU).  ``--reduced`` serves
 the reference's tiny same-family config; ``--layers`` alone keeps the
-full widths and cuts the depth.
+full widths and cuts the depth.  ``--analog-backend`` is ``digital``,
+``emulator`` (needs ``--emulator-params``), ``analytic`` or ``circuit``.
 
 ``ServeSession`` builds the model once, discovers every analog dense()
 call site (keys ``"<tag>#<ordinal>"`` for tail layers and
@@ -219,8 +220,8 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--device", default=None,
                     help="torch device (default: the current CUDA device)")
     ap.add_argument("--analog-backend", default="digital",
-                    choices=["digital", "emulator"],
-                    help="route MLP projections through the analog fast path")
+                    choices=["digital", "emulator", "analytic", "circuit"],
+                    help="route MLP projections through the analog backend")
     ap.add_argument("--emulator-params", default=None,
                     help="npz with Conv4Xbar params (the reference's "
                          "emulator cache format); required for "
@@ -253,14 +254,16 @@ def main(argv: Optional[List[str]] = None):
         from repro_torch.configs.rram_ps32 import CASE_A
         from repro_torch.core.analog import AnalogExecutor
         from repro_torch.interop import load_emulator_npz
-        if not args.emulator_params:
-            raise SystemExit("--analog-backend=emulator needs "
-                             "--emulator-params <npz>")
+        eparams = None
+        if args.analog_backend == "emulator":
+            if not args.emulator_params:
+                raise SystemExit("--analog-backend=emulator needs "
+                                 "--emulator-params <npz>")
+            eparams = load_emulator_npz(args.emulator_params, device)
         ex = AnalogExecutor(
             acfg=AnalogConfig(enabled=True, backend=args.analog_backend,
                               layers=("mlp",)),
-            geom=CASE_A,
-            emulator_params=load_emulator_npz(args.emulator_params, device))
+            geom=CASE_A, emulator_params=eparams)
     sess = ServeSession(args.arch, reduced=args.reduced,
                         reduced_layers=args.layers, batch=args.batch,
                         prompt_len=args.prompt_len, gen=args.gen,

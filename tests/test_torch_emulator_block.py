@@ -131,3 +131,136 @@ def test_launch_args_refuse_what_the_kernel_does_not_take():
         eb.launch_args(ta, tpre, tu, tp, torch.zeros(5, 32))
     with pytest.raises(ValueError, match="grid"):
         eb.launch_args(ta, tpre, tu, tp, None, 0)
+
+
+# --------------------------------------------------------------------------- #
+# B2 (emulator_block) and B3 (emulator_block_grid): the dispatchers on CPU
+# tensors take the plain versions, held against the reference's
+# ``conv4xbar.apply`` and its interpret-mode Pallas kernels at rtol 2e-5 /
+# atol 2e-6, with N % block_n != 0 and M % block_m != 0 on the reference side
+# --------------------------------------------------------------------------- #
+from repro.kernels.emulator_block import (  # noqa: E402
+    emulator_block as ref_block, emulator_block_grid as ref_grid)
+from repro_torch.kernels.emulator_block import ops  # noqa: E402
+
+
+def _block_inputs(g, npf, N, seed):
+    rg, tg = GEOMS[g]
+    jp, tp = both_emulator_params(rg, npf, seed=seed)
+    rng = np.random.default_rng(seed + 1)
+    x = rng.uniform(0, 1, (N,) + tg.chw).astype(np.float32)
+    x[0, 0, :, :3] = 0.0                         # idle wordlines
+    periph = rng.uniform(-1, 1, (N, npf)).astype(np.float32)
+    return jp, tp, x, periph
+
+
+@pytest.mark.parametrize("g,npf,N,bn", [("A", 2, 5, 2), ("B", 2, 3, 8),
+                                        ("A", 15, 6, 4), ("B", 15, 4, 3)])
+def test_block_dispatcher_cpu_matches_reference(g, npf, N, bn):
+    rg, tg = GEOMS[g]
+    jp, tp, x, periph = _block_inputs(g, npf, N, seed=npf + N)
+    eb.emulator_block_cuda.launches = 0
+    got = ops.emulator_block(tp, torch.from_numpy(x), torch.from_numpy(periph), tg)
+    assert eb.emulator_block_cuda.launches == 0
+    assert tuple(got.shape) == (N, tg.outputs)
+    want_apply = rconv.apply(jp, jnp.asarray(x), jnp.asarray(periph))
+    want_pallas = ref_block(jp, jnp.asarray(x), jnp.asarray(periph), rg, block_n=bn)
+    assert_close(got, want_apply, 2e-5, 2e-6, "vs apply")
+    assert_close(got, want_pallas, 2e-5, 2e-6, "vs interpret-mode kernel")
+
+
+@pytest.mark.parametrize("g,npf,M,NB,NO,bm", [("A", 2, 3, 2, 3, 2), ("B", 2, 5, 1, 2, 2),
+                                              ("A", 15, 4, 2, 2, 3), ("B", 0, 3, 2, 2, 2)])
+def test_grid_dispatcher_cpu_matches_reference(g, npf, M, NB, NO, bm):
+    rg, tg = GEOMS[g]
+    jp, tp = both_emulator_params(rg, npf, seed=M + NB)
+    rng = np.random.default_rng(M)
+    D, H, W = tg.tiles, tg.rows, tg.cols
+    v = rng.uniform(0, 1, (M, NB, D, H)).astype(np.float32)
+    v[0, 0, 0, :7] = 0.0
+    gn = rng.uniform(0, 1, (NB * NO, D, H, W)).astype(np.float32)
+    eb.emulator_block_grid_cuda.launches = 0
+    got = ops.emulator_block_grid(tp, torch.from_numpy(v), torch.from_numpy(gn), tg)
+    assert eb.emulator_block_grid_cuda.launches == 0
+    assert tuple(got.shape) == (M, NB * NO, tg.outputs)
+    want_pallas = ref_grid(jp, jnp.asarray(v), jnp.asarray(gn), rg, block_m=bm)
+    assert_close(got, want_pallas, 2e-5, 2e-6, "vs interpret-mode kernel")
+    # the broadcast (V, G) stack with the constant periph through apply
+    x = np.stack(np.broadcast_arrays(
+        v[:, :, None, :, :, None], gn.reshape(NB, NO, D, H, W)[None]), axis=3)
+    x = x.reshape(M * NB * NO, 2, D, H, W)
+    per = None
+    if npf:
+        per = np.zeros((x.shape[0], npf), np.float32)
+        per[:, 0] = 1.0
+    want_apply = rconv.apply(jp, jnp.asarray(x),
+                             None if per is None else jnp.asarray(per))
+    assert_close(got.reshape(-1, tg.outputs), want_apply, 2e-5, 2e-6, "vs apply")
+
+
+@pytest.mark.parametrize("chunk", [1, 2, 5, None])
+def test_grid_plain_chunking_is_neutral(chunk):
+    _, tp = both_emulator_params(REF_A, 2, seed=1)
+    rng = np.random.default_rng(2)
+    v = torch.from_numpy(rng.uniform(0, 1, (3, 2) + CASE_A.chw[1:3]).astype(np.float32))
+    gn = torch.from_numpy(rng.uniform(0, 1, (6,) + CASE_A.chw[1:]).astype(np.float32))
+    full = eb.emulator_block_grid_plain(tp, v, gn, CASE_A, chunk_blocks=6)
+    got = eb.emulator_block_grid_plain(tp, v, gn, CASE_A, chunk_blocks=chunk)
+    assert_close(got, full, 1e-6, 1e-7)
+
+
+def test_plain_versions_are_apply():
+    jp, tp, x, periph = _block_inputs("B", 2, 3, seed=0)
+    a = eb.emulator_block_plain(tp, torch.from_numpy(x), torch.from_numpy(periph))
+    assert torch.equal(a, conv4xbar.apply(tp, torch.from_numpy(x),
+                                          torch.from_numpy(periph)))
+
+
+def test_block_and_grid_cuda_entries_refuse_cpu_tensors():
+    _, tp, x, periph = _block_inputs("A", 2, 2, seed=0)
+    eb.emulator_block_cuda.launches = eb.emulator_block_grid_cuda.launches = 0
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        eb.emulator_block_cuda(tp, torch.from_numpy(x), torch.from_numpy(periph), CASE_A)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        eb.emulator_block_grid_cuda(tp, torch.zeros(1, 1, 4, 64), torch.zeros(2, 4, 64, 2),
+                                    CASE_A)
+    assert eb.emulator_block_cuda.launches == eb.emulator_block_grid_cuda.launches == 0
+
+
+def test_dispatchers_refuse_other_devices():
+    _, tp = both_emulator_params(REF_A, 2)
+    meta = torch.empty((2,) + CASE_A.chw, device="meta")
+    with pytest.raises(ValueError, match="no emulator kernel"):
+        ops.emulator_block(tp, meta, torch.empty((2, 2), device="meta"), CASE_A)
+    with pytest.raises(ValueError, match="no emulator kernel"):
+        ops.emulator_block_grid(tp, torch.empty((1, 1, 4, 64), device="meta"),
+                                torch.empty((2, 4, 64, 2), device="meta"), CASE_A)
+
+
+@pytest.mark.parametrize("g,npf", [("A", 0), ("A", 2), ("B", 2), ("B", 15)])
+def test_pack_net_weights_layout(g, npf):
+    """The packed vector the kernels read: fixed part, then fc0's rows
+    (flatten rows channels-last, then the periph rows), as the source's
+    ``Net`` offsets lay them out."""
+    rg, tg = GEOMS[g]
+    _, tp = both_emulator_params(rg, npf, seed=3)
+    w, gid, P = eb.pack_net_weights(tp, tg)
+    assert (gid, P) == ({"A": 0, "B": 1}[g], npf)
+    flat = conv4xbar.flat_features(tg)
+    fixed = (16 * 3 + (2 * 16 * 8 + 8) + (4 * 8 * 4 + 4) + (8 * 4 * 32 + 32)
+             + (2 * 32 * 32 + 32) + 32 + (32 * 16 + 16) + (16 * tg.outputs + tg.outputs))
+    assert w.numel() == fixed + (flat + npf) * 32
+    assert torch.equal(w[:16], tp["conv0_w"][:, 0, 0, 0, 0])
+    assert torch.equal(w[w.numel() - npf * 32:].reshape(npf, 32), tp["fc0_w"][flat:])
+    aux = conv4xbar.blocklast_weights(tp, tg)
+    f0 = w[fixed:fixed + flat * 32].reshape(flat, 32)
+    assert torch.equal(f0, aux["fcs"][0][0])      # the fast path's permutation
+
+
+def test_pack_net_weights_refuses_other_nets():
+    _, tp = both_emulator_params(REF_A, 2)
+    bad = dict(tp, fc1_w=torch.zeros(32, 8))
+    with pytest.raises(ValueError, match="fc1_w"):
+        eb.pack_net_weights(bad, CASE_A)
+    with pytest.raises(ValueError, match="geometry"):
+        eb.pack_net_weights(tp, CASE_A.__class__("x", 2, 4, 32, 2, 1))

@@ -203,7 +203,13 @@ bad = sorted(k for k in sys.modules
              or k.startswith('repro.'))
 print('BAD', bad)
 print('N', sum(1 for k in sys.modules if k.startswith('repro_torch')))
+print('MISSING', [m for m in NEW if m not in sys.modules])
 """
+    new = ["repro_torch.core." + m for m in ("circuit", "analytic", "theory",
+                                              "emulator")]
+    new += ["repro_torch.launch.quickstart",
+            "repro_torch.kernels.emulator_block.ops"]
+    code = f"NEW = {new!r}\n" + code
     env = dict(os.environ)
     env.pop("PYTHONPATH", None)
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
@@ -211,4 +217,20 @@ print('N', sum(1 for k in sys.modules if k.startswith('repro_torch')))
     assert out.returncode == 0, out.stderr
     assert "BAD []" in out.stdout, out.stdout
     n = int(out.stdout.split("N ")[1].split()[0])
-    assert n >= 20
+    assert n >= 25
+    assert "MISSING []" in out.stdout, out.stdout
+
+
+@pytest.mark.parametrize("backend", ["analytic", "circuit"])
+def test_serve_cli_takes_the_analytic_and_circuit_backends(backend):
+    """``--analog-backend analytic|circuit`` serves without an emulator
+    npz, through the executor's block tensors (no kernel on the CPU)."""
+    from repro_torch.launch import serve
+    argv = ["--arch", "gemma3-1b", "--reduced", "--layers", "1", "--device",
+            "cpu", "--batch", "1", "--prompt-len", "4", "--gen", "2"]
+    _, dig = serve.main(argv)
+    sess, out = serve.main(argv + ["--analog-backend", backend])
+    assert sess.ex.acfg.backend == backend
+    assert out["tokens"].shape == (1, 2)
+    assert np.isfinite(out["logits"]).all()
+    assert not np.array_equal(out["logits"], dig["logits"])   # analog ran
