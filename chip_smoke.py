@@ -9,11 +9,13 @@ JAX or of the JAX package.  Phases (any failure exits non-zero):
   0. the card's name and power limit (nvidia-smi), torch and CUDA versions
   1. build every kernel from ``src/repro_torch`` (one nvcc per source, in
      parallel): B1 (unified evaluator), B2 (per-block network), B3 (grid
-     network); ptxas registers / shared memory / spills
-  2. each kernel against its plain PyTorch version on the card, fp32 with
-     TF32 off, at small shapes (ragged tiles, CASE_A and CASE_B, plain and
-     conditioned periph widths) and at the full-width gemma3-1b MLP
-     shapes; outputs compared at rtol 1e-4 / atol 1e-5
+     network), B4 (crossbar MAC), B5 (flash attention), B6 (linear scan);
+     ptxas registers / shared memory / spills
+  2. the emulator kernels against their plain PyTorch versions on the
+     card, fp32 with TF32 off, at small shapes (ragged tiles, CASE_A and
+     CASE_B, plain and conditioned periph widths; B1 in both modes) and at
+     the full-width gemma3-1b MLP shapes; outputs compared at rtol 1e-4 /
+     atol 1e-5
   3. the emulator lifecycle at the paper's sizes through the port's
      quickstart: label the Table 1 dataset (50,000 + 5,000 CASE_A blocks)
      with the circuit solver, train a Conv4Xbar on it (B2 evaluates the
@@ -21,7 +23,10 @@ JAX or of the JAX package.  Phases (any failure exits non-zero):
      depth cut to 2 layers, MLP projections on that trained emulator (B1);
      plus the analog matmul on the card against the port's CPU path
   4. B1's times at full-width ``mlp.up`` and ``mlp.down`` (CUDA events)
-     beside the least time the card could take
+     beside the least time the card could take; B1's bf16 mode driven
+     through the dispatcher at the same shapes, held against its plain
+     version (rtol 1e-4 / atol 1e-5) and against the fp32 mode (atol
+     5e-2), and timed
   5. the paper's headline: time per CASE_A block for the circuit solver,
      the analytic model, the plain network and B2, at 2,048 and 65,536
      blocks
@@ -30,10 +35,20 @@ JAX or of the JAX package.  Phases (any failure exits non-zero):
      path = B3, emulator fast path = B1); full-width ``mlp.up`` through
      B3 against B1 at rtol 2e-4 / atol 1e-5; a conditioned net given
      scenario features through B2; B2 and B3 times
-  7. a JSON ``kernels`` line, then the card line, then the result line.
+  7. the kernels' own entry points, each launched through its ``ops``
+     function at full model widths and at a ragged shape, fp32 and bf16:
+     B4 ``xbar_mac`` (gemma3-1b's ``mlp.up``/``mlp.down`` as one crossbar
+     MAC), B5 ``flash_attention`` (gemma3-1b's global and local layers,
+     recurrentgemma-2b's local layers), B6 ``linear_scan`` (falcon-mamba-
+     7b's selective-scan state, recurrentgemma-2b's RG-LRU); each held
+     against its plain version (fp32 rtol 1e-4 / atol 1e-5, bf16 rtol
+     1e-2 / atol 1e-2) and timed beside its bound and, where one PyTorch
+     call computes the same function, that call (``library_ms``)
+  8. a JSON ``kernels`` line, then the card line, then the result line.
 """
 from __future__ import annotations
 
+import importlib
 import json
 import subprocess
 import sys
@@ -42,9 +57,12 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 RTOL, ATOL = 1e-4, 1e-5
+BF16_RTOL, BF16_ATOL = 1e-2, 1e-2     # bf16 outputs: about one bf16 ulp
+B1_BF16_ATOL = 5e-2          # B1 bf16 mode vs fp32 mode (ROADMAP B1 gate)
 SLOW_RTOL, SLOW_ATOL = 2e-4, 1e-5     # slow path vs fast path (reference's)
 HBM_BYTES_S = 3.35e12        # H100 SXM HBM3
 FP32_FLOP_S = 67e12          # H100 SXM fp32 outside the tensor cores
+BF16_FLOP_S = 989e12         # H100 SXM dense bf16 on the tensor cores
 GEMMA = dict(d_model=1152, d_ff=6912)
 # the emulator's training budget on the card: 50 epochs on the Table 1
 # set, lr 2e-3 halved at the quickstart's points stretched to 50 epochs
@@ -59,9 +77,12 @@ def fail(msg: str) -> None:
 
 
 def unified_work(M, NB, NO, D, W, O, flat, shift):
-    """(bytes, fp32 operations) the unified block evaluator must move and
-    do for one call: every input read once, the output written once; an
-    FMA counts 2, an expm1 (inside CELU) 1."""
+    """(bytes, GEMM operations, other operations) the unified block
+    evaluator must move and do for one call: every input read once, the
+    output written once; an FMA counts 2, an expm1 (inside CELU) 1, a bias
+    starts its accumulator (as ``net_flops`` counts).  The GEMM operations
+    are the products of the stage-1 window contraction, the tail stages,
+    the W-stage and the FC head (bf16 operands in the bf16 mode)."""
     G, K1, C0, O1 = 32, 2, 16, 8
     nblk = NB * NO
     P = D * W * G
@@ -73,13 +94,17 @@ def unified_work(M, NB, NO, D, W, O, flat, shift):
     n_out = 2 * M * nblk * O
     nbytes = 4 * (n_in + n_pre + n_w + n_sh + n_out)
     taps = P * K1
-    stage1 = taps * (4 * C0 + 2 * C0 * O1 + 3 * O1) + P * 5 * O1
     wo = 1 if W <= 2 else W // 2
-    rail = ((P // 4) * (2 * 32 * 4 + 2 * 4) + (P // 32) * (2 * 32 * 32 + 64)
-            + D * wo * (2 * 64 * 32 + 64) + 2 * flat * 32 + 64
-            + (32 if shift is not None else 0) + 2 * 32 * 16 + 32
-            + 2 * 16 * O + O)
-    return nbytes, M * nblk * (stage1 + 2 * rail)
+    gemm = taps * 2 * C0 * O1 + 2 * (
+        (P // 4) * 2 * 32 * 4 + (P // 32) * 2 * 32 * 32 + D * wo * 2 * 64 * 32
+        + 2 * flat * 32 + 2 * 32 * 16 + 2 * 16 * O)
+    # per tap: u*w0v + g0 (FMA), expm1, - celu0; the rail mask's product
+    # and two sums; per position: y0 + each rail, the rail difference, two
+    # expm1; per rail the tail's expm1s and the optional fc0 shift
+    other = taps * (4 * C0 + 3 * O1) + P * 5 * O1 + 2 * (
+        (P // 4) * 4 + (P // 32) * 32 + D * wo * 32 + 32
+        + (32 if shift is not None else 0) + 16)
+    return nbytes, M * nblk * gemm, M * nblk * other
 
 
 def net_layers(geom, P):
@@ -130,8 +155,12 @@ def grid_work(geom, M, NB, NO, P):
     return nbytes, M * NB * NO * per_row + NB * NO * n0 * 2
 
 
-def bound_ms(nbytes, flops):
-    tb, to = nbytes / HBM_BYTES_S * 1e3, flops / FP32_FLOP_S * 1e3
+def bound_ms(nbytes, *work):
+    """The least time the card could take: the larger of the bytes over
+    the memory rate and each (operations, peak rate) pair's time; the
+    pairs' units may run at once, so their times do not add."""
+    tb = nbytes / HBM_BYTES_S * 1e3
+    to = max((ops / peak * 1e3 for ops, peak in work), default=0.0)
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
@@ -192,6 +221,7 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
+    BF16 = torch.bfloat16
     t_start = time.perf_counter()
 
     # ---- phase 0 --------------------------------------------------------
@@ -211,12 +241,14 @@ def main() -> None:
     from repro_torch.core.analog import AnalogExecutor
     from repro_torch.core.crossbar import build_conductance_plan
     from repro_torch.interop import save_emulator_npz
+    from repro_torch.kernels import _build
     from repro_torch.kernels.emulator_block import emulator_block as eb
+    from repro_torch.kernels.emulator_block.ops import emulator_block_unified
     from repro_torch.models.common import init_params
 
     # ---- phase 1: build -------------------------------------------------
     t0 = time.perf_counter()
-    built = eb.build_all()
+    built = _build.build_all()
     print(f"[build] {len(built)} libraries in {time.perf_counter() - t0:.1f} s",
           flush=True)
     for src, (lib, log) in built.items():
@@ -229,6 +261,10 @@ def main() -> None:
         for P in (0, 2, 15):
             print(f"[build] B2/B3 dynamic shared memory {geom.name} P={P}: "
                   f"{eb.block_smem_bytes(geom, P)} B", flush=True)
+    fa = importlib.import_module("repro_torch.kernels.flash_attention.flash_attention")
+    for D in (64, 128, 256):
+        print(f"[build] B5 dynamic shared memory D={D}: {fa.smem_bytes(D)} B",
+              flush=True)
 
     # ---- phase 2: kernel vs plain ---------------------------------------
     acfg = AnalogConfig(enabled=True, backend="emulator", layers=("mlp",))
@@ -274,7 +310,7 @@ def main() -> None:
         ("mlp.down M=4", CASE_A, 0, GEMMA["d_ff"], GEMMA["d_model"], 4, None, None),
         ("mlp.down M=128", CASE_A, 0, GEMMA["d_ff"], GEMMA["d_model"], 128, None, None),
     ]
-    max_abs = {"B1": 0.0, "B2": 0.0, "B3": 0.0}
+    max_abs = {"B1": 0.0, "B1 bf16": 0.0, "B2": 0.0, "B3": 0.0}
     timed = {}
     for i, (label, geom, npf, K, N, M, bm, sh) in enumerate(cases):
         params, aux = net(geom, npf)
@@ -294,6 +330,15 @@ def main() -> None:
         torch.cuda.synchronize()
         max_abs["B1"] = max(max_abs["B1"], compare(
             f"B1 {label}: NB={plan.NB} NO={plan.NO} M={M}", got, want))
+        if not label.startswith("mlp."):    # bf16 mode: full widths in phase 4
+            got = eb.emulator_block_unified_cuda(aux, pre, u, pos, shift=shift,
+                                                 block_m=bm, compute_dtype=BF16)
+            torch.cuda.synchronize()
+            want = eb.emulator_block_unified_plain(aux, pre, u, pos, shift=shift,
+                                                   compute_dtype=BF16)
+            max_abs["B1 bf16"] = max(max_abs["B1 bf16"], compare(
+                f"B1 bf16 mode {label}: NB={plan.NB} NO={plan.NO} M={M}", got,
+                want))
         if label.startswith("mlp."):
             timed[(label.split()[0], M)] = (aux, pre, u, pos, plan)
         else:
@@ -425,22 +470,58 @@ def main() -> None:
     if not rel < 1e-4:
         fail("analog matmul on the card disagrees with the CPU path")
 
-    # ---- phase 4: B1 times -------------------------------------------------
-    b1_shapes = []
+    # ---- phase 4: B1 times; B1's bf16 mode ---------------------------------
+    b1_shapes, b1_bf16_shapes = [], []
+    b1_bf16_launches, bf16_vs_f32 = 0, 0.0
     for (tag, M), (aux, pre, u, pos, plan) in sorted(timed.items()):
-        nbytes, flops = unified_work(M, plan.NB, plan.NO, plan.D,
-                                     2 * plan.no, 1, 128, None)
-        bms, by = bound_ms(nbytes, flops)
+        nbytes, gemm, other = unified_work(M, plan.NB, plan.NO, plan.D,
+                                           2 * plan.no, 1, 128, None)
+        bms, by = bound_ms(nbytes, (gemm + other, FP32_FLOP_S))
         ms = cuda_ms(lambda: eb.emulator_block_unified_cuda(aux, pre, u, pos),
                      iters=10 if M <= 8 else 5)
         pms = cuda_ms(lambda: eb.emulator_block_unified_plain(aux, pre, u, pos),
                       iters=3 if M <= 8 else 1, warmup=1)
         b1_shapes.append(dict(shape=f"{tag} K={plan.K} N={plan.N} M={M}", ms=ms,
                               plain_ms=pms, bound_ms=bms, bound_by=by,
-                              bytes=nbytes, flops=flops))
+                              bytes=nbytes, flops=gemm + other, peak="fp32"))
         print(f"[time] B1 {tag} M={M}: kernel {ms:.3f} ms, plain {pms:.3f} ms, "
               f"bound {bms:.3f} ms ({by}: {nbytes / 1e9:.3f} GB, "
-              f"{flops / 1e9:.1f} GFLOP) [{card}]", flush=True)
+              f"{(gemm + other) / 1e9:.2f} GFLOP at fp32) [{card}]", flush=True)
+        # the bf16 mode through the dispatcher, as a caller asks for it
+        eb.emulator_block_unified_cuda.launches = 0
+        got = emulator_block_unified(aux, pre, u, pos, compute_dtype=BF16)
+        torch.cuda.synchronize()
+        b1_bf16_launches += eb.emulator_block_unified_cuda.launches
+        want = eb.emulator_block_unified_plain(aux, pre, u, pos,
+                                               compute_dtype=BF16)
+        max_abs["B1 bf16"] = max(max_abs["B1 bf16"], compare(
+            f"B1 bf16 mode {tag} M={M}", got, want))
+        f32 = eb.emulator_block_unified_cuda(aux, pre, u, pos)
+        d = compare(f"B1 bf16 mode vs fp32 mode {tag} M={M}", got, f32, 0.0,
+                    B1_BF16_ATOL)
+        bf16_vs_f32 = max(bf16_vs_f32, d)
+        del got, want, f32
+        bms, by = bound_ms(nbytes, (gemm, BF16_FLOP_S), (other, FP32_FLOP_S))
+        ms = cuda_ms(lambda: emulator_block_unified(aux, pre, u, pos,
+                                                    compute_dtype=BF16),
+                     iters=10 if M <= 8 else 5)
+        pms = cuda_ms(lambda: eb.emulator_block_unified_plain(
+            aux, pre, u, pos, compute_dtype=BF16), iters=3 if M <= 8 else 1,
+            warmup=1)
+        b1_bf16_shapes.append(dict(
+            shape=f"{tag} K={plan.K} N={plan.N} M={M} bf16 mode", ms=ms,
+            plain_ms=pms, bound_ms=bms, bound_by=by, bytes=nbytes,
+            flops=gemm + other, peak="GEMM bf16, the rest fp32"))
+        print(f"[time] B1 bf16 mode {tag} M={M}: kernel {ms:.3f} ms, plain "
+              f"{pms:.3f} ms, bound {bms:.3f} ms ({by}: {nbytes / 1e9:.3f} GB; "
+              f"{gemm / 1e9:.2f} GFLOP GEMM at bf16, {other / 1e9:.2f} GFLOP "
+              f"other at fp32) [{card}]", flush=True)
+    print(f"[B1 bf16] launches through the dispatcher {b1_bf16_launches}; max "
+          f"|bf16 mode - fp32 mode| {bf16_vs_f32:.4e} (gate {B1_BF16_ATOL}); "
+          f"max |kernel - plain| {max_abs['B1 bf16']:.3e}", flush=True)
+    if b1_bf16_launches != len(timed):
+        fail(f"B1's bf16 mode launched {b1_bf16_launches} times for "
+             f"{len(timed)} dispatcher calls")
     for tag in ("mlp.up", "mlp.down"):
         aux, _, _, _, plan = timed[(tag, 4)]
         pre_ms = cuda_ms(lambda: conv4xbar.blocklast_precompute(aux, plan.g_norm),
@@ -487,7 +568,7 @@ def main() -> None:
                 fail(f"the trained emulator tracks the circuit at corr {corr_ce:.3f}")
         per_block[N] = {k: v * 1e3 / N for k, v in row.items()}     # us/block
         nbytes, flops = block_work(CASE_A, N, 2)
-        bms, by = bound_ms(nbytes, flops)
+        bms, by = bound_ms(nbytes, (flops, FP32_FLOP_S))
         b2_shapes.append(dict(shape=f"CASE_A N={N} P=2", ms=row["B2"],
                               plain_ms=row["plain apply"], bound_ms=bms,
                               bound_by=by, bytes=nbytes, flops=flops))
@@ -607,7 +688,7 @@ def main() -> None:
             v = torch.rand((rows, plan.NB, plan.D, plan.rows), generator=gs,
                            device=dev)
             nbytes, flops = grid_work(CASE_A, rows, plan.NB, plan.NO, 2)
-            bms, by = bound_ms(nbytes, flops)
+            bms, by = bound_ms(nbytes, (flops, FP32_FLOP_S))
             ms = cuda_ms(lambda: eb.emulator_block_grid_cuda(trained, v, gn, CASE_A),
                          iters=5 if M <= 8 else 2, warmup=1)
             pms = None
@@ -624,27 +705,30 @@ def main() -> None:
                   f"{flops / 1e9:.1f} GFLOP) [{card}]", flush=True)
     torch.cuda.empty_cache()
 
-    # ---- phase 7: the kernels line ---------------------------------------
-    src = "src/repro_torch/kernels/emulator_block/csrc/"
-    ref = "src/repro/kernels/emulator_block/emulator_block.py:"
+    # ---- phase 7: the kernels' own entry points ---------------------------
+    t7 = time.perf_counter()
+    b4, b5, b6 = entry_points_phase(dev, card)
+    print(f"[entry points] phase 7 took {time.perf_counter() - t7:.1f} s",
+          flush=True)
 
-    def entry(name, source, replaces, launches, err, head, shapes):
-        return {"name": name, "route": "cuda", "source": src + source,
-                "replaces": ref + replaces, "launches": launches,
-                "max_abs_err": err, "ms": head["ms"],
-                "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
-                "bound_by": head["bound_by"], "library_ms": None,
-                "shapes": shapes}
-
+    # ---- phase 8: the kernels line ---------------------------------------
+    ebk = "emulator_block/emulator_block.py:"
     b1_head = next(r for r in b1_shapes if r["shape"].startswith("mlp.up")
                    and r["shape"].endswith(" M=4"))
+    b1_bf16_head = next(r for r in b1_bf16_shapes if r["shape"].startswith(
+        "mlp.up") and r["shape"].endswith(" M=4 bf16 mode"))
+    src = "emulator_block/csrc/"
     kernels = [
-        entry("emulator_block_unified", "emulator_block_unified.cu", "295",
-              b1_launches, max_abs["B1"], b1_head, b1_shapes),
-        entry("emulator_block", "emulator_block.cu", "182", b2_launches,
-              max_abs["B2"], b2_shapes[-1], b2_shapes),
-        entry("emulator_block_grid", "emulator_block.cu", "137", b3_launches,
-              max_abs["B3"], b3_shapes[0], b3_shapes),
+        entry("emulator_block_unified", src + "emulator_block_unified.cu",
+              ebk + "295", b1_launches, max_abs["B1"], b1_head, b1_shapes),
+        entry("emulator_block_unified (bf16 mode)",
+              src + "emulator_block_unified.cu", ebk + "295", b1_bf16_launches,
+              max_abs["B1 bf16"], b1_bf16_head, b1_bf16_shapes),
+        entry("emulator_block", src + "emulator_block.cu", ebk + "182",
+              b2_launches, max_abs["B2"], b2_shapes[-1], b2_shapes),
+        entry("emulator_block_grid", src + "emulator_block.cu", ebk + "137",
+              b3_launches, max_abs["B3"], b3_shapes[0], b3_shapes),
+        b4, b5, b6,
     ]
     print(f"[done] {time.perf_counter() - t_start:.1f} s", flush=True)
     print(card, flush=True)
@@ -652,6 +736,204 @@ def main() -> None:
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
+
+
+def entry(name, source, replaces, launches, err, head, shapes):
+    """One kernel's record of the ``kernels`` line: ``source`` under the
+    port's kernels, ``replaces`` under the JAX package's; ``head`` is the
+    shape whose numbers stand at the top level."""
+    return {"name": name, "route": "cuda",
+            "source": "src/repro_torch/kernels/" + source,
+            "replaces": "src/repro/kernels/" + replaces, "launches": launches,
+            "max_abs_err": err, "ms": head["ms"], "plain_ms": head["plain_ms"],
+            "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+            "library_ms": head.get("library_ms"), "shapes": shapes}
+
+
+def attention_pairs(S, causal, window):
+    """Unmasked (query, key) pairs of one head of length S."""
+    import numpy as np
+    q = np.arange(S)
+    hi = q + 1 if causal else np.full(S, S)                   # keys k < hi
+    lo = np.maximum(0, q - window + 1) if window else np.zeros(S, np.int64)
+    return int(np.maximum(hi - lo, 0).sum())
+
+
+def entry_points_phase(dev, card):
+    """Phase 7: B4, B5 and B6 launched through their ``ops`` entry points
+    at full model widths and at a ragged shape, fp32 and bf16, with the
+    launch counts set to 0 just before each call and read just after;
+    each output held against the plain version, then timed.  Returns the
+    three kernels' records for the ``kernels`` line."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.linear_scan.ops import linear_scan
+    from repro_torch.kernels.xbar_mac.ops import xbar_mac
+    xm = importlib.import_module("repro_torch.kernels.xbar_mac.xbar_mac")
+    fa = importlib.import_module(
+        "repro_torch.kernels.flash_attention.flash_attention")
+    lsm = importlib.import_module("repro_torch.kernels.linear_scan.linear_scan")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(700)
+    dtypes = (("fp32", torch.float32, RTOL, ATOL, FP32_FLOP_S),
+              ("bf16", torch.bfloat16, BF16_RTOL, BF16_ATOL, BF16_FLOP_S))
+
+    def shape_row(shape, dname, ms, pms, lms, nbytes, ops, peak, **extra):
+        bms, by = bound_ms(nbytes, (ops, peak))
+        print(f"[time] {shape} {dname}: kernel {ms:.4f} ms, plain {pms:.4f} ms, "
+              f"library {'none' if lms is None else f'{lms:.4f} ms'}, bound "
+              f"{bms:.4f} ms ({by}: {nbytes / 1e6:.1f} MB, {ops / 1e9:.3f} "
+              f"GFLOP at {peak / 1e12:.0f} TFLOP/s) [{card}]", flush=True)
+        return dict(shape=shape, dtype=dname, ms=ms, plain_ms=pms,
+                    library_ms=lms, bound_ms=bms, bound_by=by, bytes=nbytes,
+                    flops=ops, peak_tflop_s=peak / 1e12, **extra)
+
+    # -- B4: a gemma3-1b MLP projection as one nonlinear crossbar MAC ------
+    d_model, d_ff = GEMMA["d_model"], GEMMA["d_ff"]
+    cases = [("ragged", 100, 70, 130),
+             ("gemma3-1b mlp.up", 4, d_model, d_ff),
+             ("gemma3-1b mlp.up", 128, d_model, d_ff),
+             ("gemma3-1b mlp.up", 2048, d_model, d_ff),
+             ("gemma3-1b mlp.down", 128, d_ff, d_model)]
+    launches, err, shapes = 0, 0.0, []
+    for dname, dt, rtol, atol, peak in dtypes:
+        for label, M, K, N in cases:
+            # v ~ U(0, 0.2) drives relu(v - 0.08) * (1 + 0.6 v) = 0.0395 on
+            # average; g ~ U(0, g_hi) puts gain * acc / v_sat near 0.8, in
+            # tanh's working range rather than its saturation
+            v = (0.2 * torch.rand((M, K), generator=gen, device=dev)).to(dt)
+            g_hi = 2 * 0.8 / (3200.0 * K * 0.0395)
+            g = (g_hi * torch.rand((K, N), generator=gen, device=dev)).to(dt)
+            xm.xbar_mac_cuda.launches = 0
+            got = xbar_mac(v, g)
+            torch.cuda.synchronize()
+            launches += xm.xbar_mac_cuda.launches
+            want = xm.xbar_mac_plain(v, g)
+            shape = f"B4 {label} ({M}, {K}) @ ({K}, {N})"
+            err = max(err, compare(f"{shape} {dname}", got.float(), want.float(),
+                                   rtol, atol))
+            vf = v.float()
+            drive = torch.clamp_min(vf - 0.08, 0.0) * (1.0 + 0.6 * vf)
+            med = float((3200.0 * (drive @ g.float())).abs().median())
+            print(f"[B4] {shape} {dname}: median |gain * acc / v_sat| {med:.3f}",
+                  flush=True)
+            it = 20 if M * K * N < 1e9 else 5
+            ms = cuda_ms(lambda: xbar_mac(v, g), iters=it)
+            pms = cuda_ms(lambda: xm.xbar_mac_plain(v, g), iters=it)
+            dl = drive.to(dt)
+            lms = cuda_ms(lambda: torch.matmul(dl, g), iters=it)
+            shapes.append(shape_row(
+                shape, dname, ms, pms, lms,
+                (M * K + K * N + M * N) * v.element_size(),
+                2 * M * K * N + 5 * M * K + 4 * M * N, peak,
+                median_gain_acc=med,
+                library="torch.matmul(drive, g): cuBLAS, the product alone"))
+            del v, g, got, want, drive, dl
+    head = next(r for r in shapes if r["shape"].startswith("B4 gemma3-1b mlp.up "
+                                                           "(128,")
+                and r["dtype"] == "fp32")
+    b4 = entry("xbar_mac", "xbar_mac/csrc/xbar_mac.cu", "xbar_mac/xbar_mac.py:36",
+               launches, err, head, shapes)
+    torch.cuda.empty_cache()
+
+    # -- B5: attention of gemma3-1b and recurrentgemma-2b at full width ----
+    cases = [("gemma3-1b global", 4, 4096, 256, True, 0),
+             ("gemma3-1b local", 4, 4096, 256, True, 512),
+             ("recurrentgemma-2b local", 10, 4096, 256, True, 2048),
+             ("ragged bidirectional", 2, 1000, 100, False, 0),
+             ("ragged window", 3, 333, 64, True, 100)]
+    launches, err, shapes = 0, 0.0, []
+    for dname, dt, rtol, atol, peak in dtypes:
+        for label, H, S, D, causal, window in cases:
+            q, k, v = (torch.randn((1, H, S, D), generator=gen, device=dev).to(dt)
+                       for _ in range(3))
+            fa.flash_attention_cuda.launches = 0
+            got = flash_attention(q, k, v, causal=causal, window=window)
+            torch.cuda.synchronize()
+            launches += fa.flash_attention_cuda.launches
+            flat = [t.reshape(H, S, D) for t in (q, k, v)]
+            want = fa.flash_attention_plain(*flat, causal=causal, window=window)
+            shape = (f"B5 {label} H={H} S={S} D={D} causal={causal} "
+                     f"window={window}")
+            err = max(err, compare(f"{shape} {dname}", got.reshape(H, S, D).float(),
+                                   want.float(), rtol, atol))
+            del got, want
+            it = 5 if S >= 4096 else 20
+            ms = cuda_ms(lambda: flash_attention(q, k, v, causal=causal,
+                                                 window=window), iters=it)
+            pms = cuda_ms(lambda: fa.flash_attention_plain(
+                *flat, causal=causal, window=window),
+                iters=2, warmup=1)
+            if window:
+                qi = torch.arange(S, device=dev)[:, None]
+                ki = torch.arange(S, device=dev)[None, :]
+                band = (qi - ki) < window
+                if causal:
+                    band &= ki <= qi
+                lms = cuda_ms(lambda: F.scaled_dot_product_attention(
+                    q, k, v, attn_mask=band), iters=it)
+                del band
+            else:
+                lms = cuda_ms(lambda: F.scaled_dot_product_attention(
+                    q, k, v, is_causal=causal), iters=it)
+            pairs = H * attention_pairs(S, causal, window)
+            shapes.append(shape_row(
+                shape, dname, ms, pms, lms, 4 * H * S * D * q.element_size(),
+                4 * D * pairs, peak, pairs=pairs,
+                library="F.scaled_dot_product_attention (causal flag or a "
+                        "boolean band mask)"))
+            del q, k, v, flat
+    head = next(r for r in shapes if r["shape"].startswith("B5 gemma3-1b global")
+                and r["dtype"] == "fp32")
+    b5 = entry("flash_attention", "flash_attention/csrc/flash_attention.cu",
+               "flash_attention/flash_attention.py:65", launches, err, head,
+               shapes)
+    torch.cuda.empty_cache()
+
+    # -- B6: falcon-mamba-7b's selective-scan state, recurrentgemma's RG-LRU
+    cases = [("falcon-mamba-7b selective scan", 1, 2048, 8192 * 16, False),
+             ("falcon-mamba-7b selective scan", 1, 2048, 8192 * 16, True),
+             ("recurrentgemma-2b RG-LRU", 4, 2048, 2560, False),
+             ("ragged", 3, 37, 1000, True)]
+    launches, err, shapes = 0, 0.0, []
+    for dname, dt, rtol, atol, peak in dtypes:
+        for label, B, S, D, with_h0 in cases:
+            a = (0.5 + 0.499 * torch.rand((B, S, D), generator=gen,
+                                          device=dev)).to(dt)
+            b = (0.1 * torch.randn((B, S, D), generator=gen, device=dev)).to(dt)
+            h0 = (torch.randn((B, D), generator=gen, device=dev).to(dt)
+                  if with_h0 else None)
+            lsm.linear_scan_cuda.launches = 0
+            h, h_last = linear_scan(a, b, h0)
+            torch.cuda.synchronize()
+            launches += lsm.linear_scan_cuda.launches
+            b0 = None if h0 is None else lsm.fold_h0(a, b, h0)
+            want = lsm.linear_scan_plain(a, b, b0)
+            shape = f"B6 {label} B={B} S={S} D={D}{' h0' if with_h0 else ''}"
+            err = max(err, compare(f"{shape} {dname}", h.float(), want.float(),
+                                   rtol, atol))
+            if not torch.equal(h_last, h[:, -1]):
+                fail(f"[{shape}] h_last is not h[:, -1]")
+            del h, h_last, want
+            it = 10 if B * S * D > 1e6 else 50
+            ms = cuda_ms(lambda: linear_scan(a, b, h0), iters=it)
+            pms = cuda_ms(lambda: lsm.linear_scan_plain(a, b, b0), iters=1,
+                          warmup=1)
+            nbytes = (3 * B * S * D + (B * D if with_h0 else 0)) * a.element_size()
+            shapes.append(shape_row(shape, dname, ms, pms, None, nbytes,
+                                    2 * B * S * D, peak))
+            del a, b, h0, b0
+            torch.cuda.empty_cache()
+    head = next(r for r in shapes if r["shape"].startswith("B6 falcon")
+                and r["dtype"] == "fp32")
+    b6 = entry("linear_scan", "linear_scan/csrc/linear_scan.cu",
+               "linear_scan/linear_scan.py:45", launches, err, head, shapes)
+    for rec in (b4, b5, b6):
+        if rec["launches"] != len(rec["shapes"]):
+            fail(f"{rec['name']} launched {rec['launches']} times for "
+                 f"{len(rec['shapes'])} entry-point calls")
+    return b4, b5, b6
 
 
 def np_isfinite(a) -> bool:

@@ -230,21 +230,26 @@ def blocklast_precompute(aux: dict, g_norm: torch.Tensor) -> dict:
 
 
 def _tail_stages(aux: dict, h: torch.Tensor, n: int, shp,
-                 fc0_shift: Optional[torch.Tensor] = None) -> torch.Tensor:
+                 fc0_shift: Optional[torch.Tensor] = None,
+                 dot=None) -> torch.Tensor:
     """Conv stages 2.. + FC head on channels-last rows.  h: 2-D (rows, C)
     laid out as shp=(n, D, W, G) x channels; -> (n, O).  ``fc0_shift`` is
     an optional fc0 pre-activation shift: flat ``(fc0_out,)`` or per
-    block ``(nblk, fc0_out)`` (rows are block-innermost)."""
+    block ``(nblk, fc0_out)`` (rows are block-innermost).  ``dot``
+    overrides every contraction (None: ``torch.matmul``); the unified
+    kernel's bf16 mode passes its bf16-operand dot."""
+    if dot is None:
+        dot = torch.matmul
     for wk, b, k in aux["hstages"][1:]:
-        h = celu(h.reshape(-1, wk.shape[0]) @ wk + b)
+        h = celu(dot(h.reshape(-1, wk.shape[0]), wk) + b)
         shp = shp[:3] + (shp[3] // k,)
     wk, b, kw = aux["wstage"]
     h = h.reshape(shp + (-1,)).permute(0, 1, 3, 2, 4)  # (n, D, H, W, C)
-    h = celu(h.reshape(-1, wk.shape[0]) @ wk + b)
+    h = celu(dot(h.reshape(-1, wk.shape[0]), wk) + b)
     h = h.reshape(n, -1)                               # (d, h, w, c) flatten
     fcs = aux["fcs"]
     for i, (fw, fb) in enumerate(fcs):
-        h = h @ fw + fb
+        h = dot(h, fw) + fb
         if i == 0 and fc0_shift is not None:
             if fc0_shift.dim() == 2:
                 nblk, f = fc0_shift.shape
@@ -256,20 +261,23 @@ def _tail_stages(aux: dict, h: torch.Tensor, n: int, shp,
     return h
 
 
-def dual_rail_stage1(g0k, celu0k, y0, w0v, w1k, u, pos):
+def dual_rail_stage1(g0k, celu0k, y0, w0v, w1k, u, pos, dot=None):
     """Stage 0+1 of the single-pass dual-rail factorization.
 
     u, pos: (..., G, k1) magnitude drive / positive-rail mask, shaped to
     broadcast against ``g0k[kk]``.  y0: (R, O1).  Returns the two rails'
     stage-1 pre-activations ``(y0 + t_pos, y0 + t_full - t_pos)`` stacked:
-    (2, batch, R, O1)."""
+    (2, batch, R, O1).  ``dot`` overrides the per-tap (C0, O1) contraction
+    (None: ``torch.matmul``)."""
+    if dot is None:
+        dot = torch.matmul
     k1, C0, O1 = w1k.shape
     R = y0.shape[0]
     t_full = t_pos = None
     for kk in range(k1):
         v0 = u[..., kk, None] * w0v
         delta = celu(v0 + g0k[kk]) - celu0k[kk]
-        t = (delta.reshape(-1, C0) @ w1k[kk]).reshape(-1, R, O1)
+        t = dot(delta.reshape(-1, C0), w1k[kk]).reshape(-1, R, O1)
         m = pos[..., kk, None].expand(delta.shape[:-1] + (1,)).reshape(-1, R, 1)
         t_full = t if t_full is None else t_full + t
         tp = t * m
@@ -279,13 +287,15 @@ def dual_rail_stage1(g0k, celu0k, y0, w0v, w1k, u, pos):
 
 def apply_blocklast(aux: dict, pre: dict, u01: torch.Tensor,
                     pos01: torch.Tensor, *, chunk: int = 4,
-                    fc0_shift: Optional[torch.Tensor] = None) -> torch.Tensor:
+                    fc0_shift: Optional[torch.Tensor] = None,
+                    dot=None) -> torch.Tensor:
     """Single-pass dual-rail blockified forward -- the plain version of
     the unified kernel.
 
     u01:   (M, NB, D, H) |x|-magnitude wordline drive in [0, 1]
     pos01: (M, NB, D, H) 1.0 where the positive rail is driven (x > 0)
     fc0_shift: optional ``(fc0_out,)`` or ``(NB*NO, fc0_out)`` shift.
+    dot: the contraction of every GEMM stage (None: ``torch.matmul``).
     Returns (2, M*NB*NO, O): block outputs of the (v+, v-) rails, rows
     M-major with the block index ``nb*NO + no`` innermost."""
     M, NB, D, H = u01.shape
@@ -305,9 +315,9 @@ def apply_blocklast(aux: dict, pre: dict, u01: torch.Tensor,
         ug = uc.reshape(mc, NB, 1, D, 1, G, k1)
         pg = pc.reshape(mc, NB, 1, D, 1, G, k1)
         h = celu(dual_rail_stage1(g0k, celu0k, y0, aux["w0v"], aux["w1k"],
-                                  ug, pg))
+                                  ug, pg, dot=dot))
         n2 = 2 * mc * NB * NO                         # h: (2, mc, R, O1)
         h = _tail_stages(aux, h.reshape(n2, -1), n2, (n2, D, W, G),
-                         fc0_shift=fc0_shift)
+                         fc0_shift=fc0_shift, dot=dot)
         outs.append(h.reshape(2, mc * NB * NO, -1)[:, :n * NB * NO])
     return torch.cat(outs, dim=1)

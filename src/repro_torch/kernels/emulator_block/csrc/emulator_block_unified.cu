@@ -1,4 +1,5 @@
-// Unified Conv4Xbar block evaluator for Hopper (sm_90a), fp32.
+// Unified Conv4Xbar block evaluator for Hopper (sm_90a), fp32, with the
+// reference kernel's bf16 mode.
 //
 // Replaces kernels/emulator_block/emulator_block.py:emulator_block_unified_pallas
 // of the JAX package (its body is _unified_kernel): BOTH rails of the
@@ -30,6 +31,20 @@
 // live in shared memory, the emulator weights (a few KB) are read through
 // the read-only cache, where every block hits them.  This is the simple
 // first version: stage 1 is scalar, the tail runs one row at a time.
+//
+// bf16 mode (template flag BF16, the reference's compute_dtype=bfloat16):
+// every GEMM operand is rounded to bf16 (round to nearest even) and the
+// products accumulate in fp32, at the reference dot's places -- the
+// stage-1 delta @ w1k[kk], each tail stage, the W-stage and each FC
+// layer.  An activation that feeds only a GEMM is rounded once where it
+// is stored; weights are rounded where they are read.  Biases, CELU, the
+// rail masks and the precompute stay fp32, so the bytes are those of the
+// fp32 mode; the arithmetic stays scalar fp32 FMA (no tensor cores yet).
+// A product of bf16 values is exact in fp32, so each FMA of the chain
+// rounds once, like the plain version's bf16 dot that sums in the same
+// order: the two agree bit for bit, where a different summation order
+// would flip bf16 roundings downstream.
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 // The emulator weights, packed by the wrapper (kernels/emulator_block/
@@ -68,7 +83,14 @@ constexpr int F1 = 32, F2 = 16;  // FC head widths
 
 __device__ __forceinline__ float celu(float x) { return x > 0.f ? x : expm1f(x); }
 
-template <int D, int W, int O>
+// a GEMM operand: itself in fp32 mode, rounded to bf16 in bf16 mode
+template <bool BF16>
+__device__ __forceinline__ float op(float x) {
+  if constexpr (BF16) return __bfloat162float(__float2bfloat16_rn(x));
+  return x;
+}
+
+template <int D, int W, int O, bool BF16>
 __global__ void __launch_bounds__(D * W * G)
 unified_kernel(const float* __restrict__ u, const float* __restrict__ pos,
                const float* __restrict__ g0k, const float* __restrict__ celu0k,
@@ -101,7 +123,7 @@ unified_kernel(const float* __restrict__ u, const float* __restrict__ pos,
   const int m1 = min(M, m0 + bm);
 
   for (int i = tid; i < C0; i += P) s_w0v[i] = wt.w0v[i];
-  for (int i = tid; i < K1 * C0 * O1; i += P) s_w1k[i] = wt.w1k[i];
+  for (int i = tid; i < K1 * C0 * O1; i += P) s_w1k[i] = op<BF16>(wt.w1k[i]);
 
   // this thread's stage-1 position t = (d*W + w)*G + g: its precompute
   // slice goes to registers once and serves every row of the tile
@@ -147,7 +169,11 @@ unified_kernel(const float* __restrict__ u, const float* __restrict__ pos,
       for (int o = 0; o < O1; ++o) t[o] = 0.f;
 #pragma unroll
       for (int c = 0; c < C0; ++c) {
-        const float dl = celu(uv * s_w0v[c] + rg0[kk][c]) - rc0[kk][c];
+        // bf16 mode: rounded apart, as the plain version's multiply and
+        // add are, so that the bf16 rounding of dl matches it
+        const float v0 = BF16 ? __fadd_rn(__fmul_rn(uv, s_w0v[c]), rg0[kk][c])
+                              : uv * s_w0v[c] + rg0[kk][c];
+        const float dl = op<BF16>(celu(v0) - rc0[kk][c]);
 #pragma unroll
         for (int o = 0; o < O1; ++o)
           t[o] = fmaf(dl, s_w1k[(kk * C0 + c) * O1 + o], t[o]);
@@ -160,8 +186,8 @@ unified_kernel(const float* __restrict__ u, const float* __restrict__ pos,
     }
 #pragma unroll
     for (int o = 0; o < O1; ++o) {
-      h1[0][tid * O1 + o] = celu(ry0[o] + tp[o]);
-      h1[1][tid * O1 + o] = celu((ry0[o] + tf[o]) - tp[o]);
+      h1[0][tid * O1 + o] = op<BF16>(celu(ry0[o] + tp[o]));
+      h1[1][tid * O1 + o] = op<BF16>(celu((ry0[o] + tf[o]) - tp[o]));
     }
     __syncthreads();
 
@@ -172,8 +198,8 @@ unified_kernel(const float* __restrict__ u, const float* __restrict__ pos,
       float acc = 0.f;
 #pragma unroll
       for (int k = 0; k < K2 * O1; ++k)
-        acc = fmaf(in[k], __ldg(wt.w2 + k * C2 + o), acc);
-      h2[r][q * C2 + o] = celu(acc + __ldg(wt.b2 + o));
+        acc = fmaf(in[k], op<BF16>(__ldg(wt.w2 + k * C2 + o)), acc);
+      h2[r][q * C2 + o] = op<BF16>(celu(acc + __ldg(wt.b2 + o)));
     }
     __syncthreads();
 
@@ -184,8 +210,8 @@ unified_kernel(const float* __restrict__ u, const float* __restrict__ pos,
       float acc = 0.f;
 #pragma unroll
       for (int k = 0; k < K3 * C2; ++k)
-        acc = fmaf(in[k], __ldg(wt.w3 + k * C3 + o), acc);
-      h3[r][q * C3 + o] = celu(acc + __ldg(wt.b3 + o));
+        acc = fmaf(in[k], op<BF16>(__ldg(wt.w3 + k * C3 + o)), acc);
+      h3[r][q * C3 + o] = op<BF16>(celu(acc + __ldg(wt.b3 + o)));
     }
     __syncthreads();
 
@@ -197,8 +223,8 @@ unified_kernel(const float* __restrict__ u, const float* __restrict__ pos,
       float acc = 0.f;
 #pragma unroll 8
       for (int k = 0; k < 2 * C3; ++k)
-        acc = fmaf(in[k], __ldg(wt.wst + k * CW + o), acc);
-      h4[r][q * CW + o] = celu(acc + __ldg(wt.bst + o));
+        acc = fmaf(in[k], op<BF16>(__ldg(wt.wst + k * CW + o)), acc);
+      h4[r][q * CW + o] = op<BF16>(celu(acc + __ldg(wt.bst + o)));
     }
     __syncthreads();
 
@@ -208,11 +234,11 @@ unified_kernel(const float* __restrict__ u, const float* __restrict__ pos,
       float acc = 0.f;
 #pragma unroll 8
       for (int k = 0; k < FLAT; ++k)
-        acc = fmaf(h4[r][k], __ldg(wt.f0 + k * F1 + o), acc);
+        acc = fmaf(h4[r][k], op<BF16>(__ldg(wt.f0 + k * F1 + o)), acc);
       acc = acc + __ldg(wt.fb0 + o);
       if (shift != nullptr)
         acc = acc + __ldg(shift + (shift_per_block ? j * F1 : 0) + o);
-      h5[r][o] = celu(acc);
+      h5[r][o] = op<BF16>(celu(acc));
     }
     __syncthreads();
     for (int i = tid; i < 2 * F2; i += P) {
@@ -220,8 +246,8 @@ unified_kernel(const float* __restrict__ u, const float* __restrict__ pos,
       float acc = 0.f;
 #pragma unroll
       for (int k = 0; k < F1; ++k)
-        acc = fmaf(h5[r][k], __ldg(wt.f1 + k * F2 + o), acc);
-      h6[r][o] = celu(acc + __ldg(wt.fb1 + o));
+        acc = fmaf(h5[r][k], op<BF16>(__ldg(wt.f1 + k * F2 + o)), acc);
+      h6[r][o] = op<BF16>(celu(acc + __ldg(wt.fb1 + o)));
     }
     __syncthreads();
     for (int i = tid; i < 2 * O; i += P) {
@@ -229,38 +255,51 @@ unified_kernel(const float* __restrict__ u, const float* __restrict__ pos,
       float acc = 0.f;
 #pragma unroll
       for (int k = 0; k < F2; ++k)
-        acc = fmaf(h6[r][k], __ldg(wt.f2 + k * O + o), acc);
+        acc = fmaf(h6[r][k], op<BF16>(__ldg(wt.f2 + k * O + o)), acc);
       out[((r * (long long)M + m) * nblk + j) * O + o] = acc + __ldg(wt.fb2 + o);
     }
   }
 }
 
-template <int D, int W, int O>
+template <int D, int W, int O, bool BF16>
 int launch(const float* u, const float* pos, const float* g0k,
            const float* celu0k, const float* y0, const float* shift,
            int shift_per_block, const Weights& wt, float* out, int M, int NB,
            int NO, int bm, cudaStream_t stream) {
   const dim3 grid((unsigned)((long long)NB * NO), (unsigned)((M + bm - 1) / bm));
-  unified_kernel<D, W, O><<<grid, D * W * G, 0, stream>>>(
+  unified_kernel<D, W, O, BF16><<<grid, D * W * G, 0, stream>>>(
       u, pos, g0k, celu0k, y0, shift, shift_per_block, wt, out, M, NB, NO, bm);
   return (int)cudaGetLastError();
+}
+
+template <int D, int W, int O>
+int launch_mode(int bf16, const float* u, const float* pos, const float* g0k,
+                const float* celu0k, const float* y0, const float* shift,
+                int shift_per_block, const Weights& wt, float* out, int M,
+                int NB, int NO, int bm, cudaStream_t s) {
+  if (bf16)
+    return launch<D, W, O, true>(u, pos, g0k, celu0k, y0, shift,
+                                 shift_per_block, wt, out, M, NB, NO, bm, s);
+  return launch<D, W, O, false>(u, pos, g0k, celu0k, y0, shift,
+                                shift_per_block, wt, out, M, NB, NO, bm, s);
 }
 
 }  // namespace
 
 // geom 0: CASE_A (D=4, W=2, O=1); geom 1: CASE_B (D=2, W=8, O=4).
+// bf16 0: fp32 mode; 1: bf16 GEMM operands, fp32 accumulation.
 // Returns the launch's cudaError_t (0 = launched); -1 for an unknown geom.
-extern "C" int emulator_block_unified_f32(
-    int geom, const float* u, const float* pos, const float* g0k,
+extern "C" int emulator_block_unified(
+    int geom, int bf16, const float* u, const float* pos, const float* g0k,
     const float* celu0k, const float* y0, const float* shift,
     int shift_per_block, const Weights* wt, float* out, int M, int NB, int NO,
     int bm, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (geom == 0)
-    return launch<4, 2, 1>(u, pos, g0k, celu0k, y0, shift, shift_per_block,
-                           *wt, out, M, NB, NO, bm, s);
+    return launch_mode<4, 2, 1>(bf16, u, pos, g0k, celu0k, y0, shift,
+                                shift_per_block, *wt, out, M, NB, NO, bm, s);
   if (geom == 1)
-    return launch<2, 8, 4>(u, pos, g0k, celu0k, y0, shift, shift_per_block,
-                           *wt, out, M, NB, NO, bm, s);
+    return launch_mode<2, 8, 4>(bf16, u, pos, g0k, celu0k, y0, shift,
+                                shift_per_block, *wt, out, M, NB, NO, bm, s);
   return -1;
 }

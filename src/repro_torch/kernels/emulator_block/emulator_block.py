@@ -6,8 +6,10 @@ its plain PyTorch version.
   one launch per analog matmul evaluates both rails of every (row,
   crossbar block) pair -- stage-1 window contraction, tail convs,
   W-stage, FC head and the optional fc0 shift
-  (``csrc/emulator_block_unified.cu``).  Its plain version is
-  ``conv4xbar.apply_blocklast``.
+  (``csrc/emulator_block_unified.cu``).  ``compute_dtype=torch.bfloat16``
+  is the reference kernel's bf16 mode: every GEMM takes bf16-rounded
+  operands and accumulates in float32.  Its plain version is
+  ``conv4xbar.apply_blocklast`` (with ``bf16_dot`` in bf16 mode).
 * ``emulator_block_cuda`` (B2) replaces ``emulator_block_pallas``: the
   paper-faithful network on full (N, 2, D, H, W) features with a
   per-block periph.  Its plain version is ``conv4xbar.apply``.
@@ -20,35 +22,26 @@ its plain PyTorch version.
 
 Each source note says what bounds its kernel and how the design answers.
 The CPU tests use the plain versions; the card run compares each kernel
-with its plain version.  Each kernel is compiled from ``csrc/`` with
-``nvcc`` at first use into ``build/`` beside this file (a gitignored
-directory), one shared library with a plain C interface per source,
-loaded through ``ctypes``.  Nothing is compiled or loaded at import time,
-so this module imports on a machine without ``nvcc`` or a card.
+with its plain version.  The sources are built by ``kernels._build``;
+nothing is compiled or loaded at import time, so this module imports on a
+machine without ``nvcc`` or a card.
 """
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
 from pathlib import Path
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Optional, Tuple
 
 import torch
 
 from repro_torch.configs.rram_ps32 import BlockGeometry
 from repro_torch.core import conv4xbar
 from repro_torch.core.conv4xbar import apply_blocklast
+from repro_torch.kernels import _build
 
 _HERE = Path(__file__).resolve().parent
 SOURCE = _HERE / "csrc" / "emulator_block_unified.cu"      # B1
 BLOCK_SOURCE = _HERE / "csrc" / "emulator_block.cu"         # B2, B3
-BUILD_DIR = _HERE / "build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # (D, W, O, fc0 rows) -> template id of the C entry point
 _GEOMS = {(4, 2, 1, 128): 0, (2, 8, 4, 256): 1}
@@ -65,77 +58,10 @@ class _Weights(ctypes.Structure):
 _LIB: dict = {}
 
 
-def _nvcc() -> str:
-    path = shutil.which("nvcc")
-    if path is None:
-        cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
-        if cand.exists():
-            path = str(cand)
-    if path is None:
-        raise RuntimeError("nvcc not found: the emulator kernels are built "
-                           "from source on a machine with the CUDA toolkit")
-    return path
-
-
-def _lib_path(source: Path) -> Path:
-    tag = hashlib.sha1(source.read_bytes()
-                       + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{source.stem}_{tag}.so"
-
-
-def build_all(sources: Sequence[Path] = (SOURCE, BLOCK_SOURCE)
-              ) -> Dict[Path, Tuple[Path, str]]:
-    """Compile each source's library (once per source version), one
-    ``nvcc`` per source, all started together.  Returns ``source ->
-    (library path, compiler output)``; the output (``-Xptxas -v``:
-    registers, shared memory, spills) is empty for a library already
-    built.  Raises if any compile fails."""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    done, running = {}, {}
-    try:
-        for src in sources:
-            lib = _lib_path(src)
-            if lib.exists():
-                done[src] = (lib, "")
-                continue
-            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-            os.close(fd)
-            proc = subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-o", tmp, str(src)],
-                                    stdout=subprocess.PIPE,
-                                    stderr=subprocess.STDOUT, text=True)
-            running[src] = (proc, tmp, lib)
-        failed = []
-        for src, (proc, tmp, lib) in running.items():
-            log, _ = proc.communicate()
-            if proc.returncode != 0:
-                failed.append(f"nvcc failed on {src.name} ({proc.returncode}):"
-                              f"\n{log}")
-                continue
-            os.replace(tmp, lib)
-            done[src] = (lib, log)
-        if failed:
-            raise RuntimeError("\n".join(failed))
-    finally:
-        for proc, tmp, _ in running.values():
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
-            if os.path.exists(tmp):
-                os.unlink(tmp)
-    return done
-
-
-def build(source: Path = SOURCE) -> Tuple[Path, str]:
-    """Compile one source's library; returns its path and the compiler's
-    output (see ``build_all``)."""
-    return build_all((source,))[source]
-
-
 def _library():
     if "fn" not in _LIB:
-        path, _ = build(SOURCE)
-        fn = ctypes.CDLL(str(path)).emulator_block_unified_f32
-        fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 6
+        fn = _build.load(SOURCE).emulator_block_unified
+        fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 6
                        + [ctypes.c_int, ctypes.POINTER(_Weights),
                           ctypes.c_void_p] + [ctypes.c_int] * 4
                        + [ctypes.c_void_p])
@@ -148,8 +74,8 @@ def _check(name: str, t: torch.Tensor, shape, device) -> None:
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
     if t.dtype != torch.float32:
-        raise TypeError(f"{name} must be float32 (got {t.dtype}); the "
-                        "kernel's bf16 mode is not ported (ROADMAP B1)")
+        raise TypeError(f"{name} must be float32 (got {t.dtype}); the bf16 "
+                        "mode rounds GEMM operands inside the kernel")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
                          f"{tuple(shape)}")
@@ -219,14 +145,25 @@ def launch_args(aux: dict, pre: dict, u01: torch.Tensor,
                 per_block=per_block, weights=ws)
 
 
+_MODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _mode(compute_dtype) -> int:
+    if compute_dtype not in _MODES:
+        raise TypeError(f"compute_dtype must be torch.float32 or "
+                        f"torch.bfloat16 (got {compute_dtype})")
+    return _MODES[compute_dtype]
+
+
 def emulator_block_unified_cuda(aux: dict, pre: dict, u01: torch.Tensor,
                                 pos01: torch.Tensor, *,
                                 shift: Optional[torch.Tensor] = None,
-                                block_m: Optional[int] = None
-                                ) -> torch.Tensor:
+                                block_m: Optional[int] = None,
+                                compute_dtype=torch.float32) -> torch.Tensor:
     """Launch the unified kernel on CUDA tensors; raises on anything it
     does not take.  Same contract as ``emulator_block_unified_plain``:
     returns (2, M*NB*NO, O) float32."""
+    mode = _mode(compute_dtype)
     if u01.device.type != "cuda":
         raise ValueError("emulator_block_unified_cuda takes CUDA tensors "
                          f"(got {u01.device}); CPU tensors go to the plain "
@@ -238,14 +175,12 @@ def emulator_block_unified_cuda(aux: dict, pre: dict, u01: torch.Tensor,
     wt = _Weights(**{k: v.data_ptr() for k, v in a["weights"].items()})
     fn = _library()
     stream = torch.cuda.current_stream(u01.device).cuda_stream
-    err = fn(a["geom"], u01.data_ptr(), pos01.data_ptr(),
+    err = fn(a["geom"], mode, u01.data_ptr(), pos01.data_ptr(),
              pre["g0k"].data_ptr(), pre["celu0k"].data_ptr(),
              pre["y0"].data_ptr(), 0 if shift is None else shift.data_ptr(),
              a["per_block"], ctypes.byref(wt), out.data_ptr(), M, NB, NO,
              a["bm"], stream)
-    if err != 0:
-        raise RuntimeError(f"emulator_block_unified kernel launch failed "
-                           f"(cudaError {err})")
+    _build.launched(err, "emulator_block_unified")
     emulator_block_unified_cuda.launches += 1
     return out
 
@@ -253,14 +188,32 @@ def emulator_block_unified_cuda(aux: dict, pre: dict, u01: torch.Tensor,
 emulator_block_unified_cuda.launches = 0
 
 
+def bf16_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The bf16 mode's GEMM ``a @ b``: both operands rounded to bf16, then
+    summed in float32 over the contraction index in order from zero.  A
+    product of two bf16 values is exact in float32, so each step rounds
+    once, as the kernel's FMA does; in the kernel's order the two agree
+    bit for bit, and a bf16 rounding downstream cannot flip between them."""
+    a = a.to(torch.bfloat16).float()
+    b = b.to(torch.bfloat16).float()
+    acc = torch.zeros(a.shape[:-1] + b.shape[1:], dtype=torch.float32,
+                      device=a.device)
+    for k in range(a.shape[-1]):
+        acc = acc + a[..., k, None] * b[k]
+    return acc
+
+
 def emulator_block_unified_plain(aux: dict, pre: dict, u01: torch.Tensor,
                                  pos01: torch.Tensor, *,
                                  shift: Optional[torch.Tensor] = None,
-                                 chunk: int = 2) -> torch.Tensor:
+                                 chunk: int = 2,
+                                 compute_dtype=torch.float32) -> torch.Tensor:
     """The kernel's function in plain PyTorch: the chunked
-    ``conv4xbar.apply_blocklast``.  Returns (2, M*NB*NO, O)."""
+    ``conv4xbar.apply_blocklast``, its GEMMs through ``bf16_dot`` in bf16
+    mode.  Returns (2, M*NB*NO, O) float32."""
+    dot = bf16_dot if _mode(compute_dtype) else None
     return apply_blocklast(aux, pre, u01, pos01, chunk=chunk,
-                           fc0_shift=shift)
+                           fc0_shift=shift, dot=dot)
 
 
 # --------------------------------------------------------------------------- #
@@ -275,7 +228,7 @@ _CONV_SHAPES = ((16, 2, 1, 1, 1), (8, 16, 1, 2, 1), (4, 8, 1, 4, 1),
 
 def _block_library():
     if "block" not in _LIB:
-        lib = ctypes.CDLL(str(build(BLOCK_SOURCE)[0]))
+        lib = _build.load(BLOCK_SOURCE)
         lib.emulator_block_f32.argtypes = (
             [ctypes.c_int] + [ctypes.c_void_p] * 3
             + [ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
@@ -354,11 +307,6 @@ def default_block_n(N: int) -> int:
     return max(1, min(32, N // 1024))
 
 
-def _launched(err: int, name: str) -> None:
-    if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed (cudaError {err})")
-
-
 def emulator_block_cuda(params: dict, x: torch.Tensor,
                         periph: Optional[torch.Tensor], geom: BlockGeometry,
                         *, block_n: Optional[int] = None) -> torch.Tensor:
@@ -386,7 +334,7 @@ def emulator_block_cuda(params: dict, x: torch.Tensor,
     if N == 0:
         return out
     stream = torch.cuda.current_stream(dev).cuda_stream
-    _launched(_block_library().emulator_block_f32(
+    _build.launched(_block_library().emulator_block_f32(
         gid, x.data_ptr(), periph.data_ptr() if P else 0, wpack.data_ptr(), P,
         out.data_ptr(), N, bn, stream), "emulator_block")
     emulator_block_cuda.launches += 1
@@ -438,7 +386,7 @@ def emulator_block_grid_cuda(params: dict, v01: torch.Tensor,
     if M == 0:
         return out
     stream = torch.cuda.current_stream(dev).cuda_stream
-    _launched(_block_library().emulator_block_grid_f32(
+    _build.launched(_block_library().emulator_block_grid_f32(
         gid, v01.data_ptr(), g_norm.data_ptr(), wpack.data_ptr(), P,
         out.data_ptr(), M, NB, NO, bm, stream), "emulator_block_grid")
     emulator_block_grid_cuda.launches += 1

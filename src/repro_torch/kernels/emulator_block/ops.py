@@ -12,6 +12,7 @@ from typing import Optional
 import torch
 
 from repro_torch.configs.rram_ps32 import BlockGeometry
+from repro_torch.kernels._build import on_cuda
 from repro_torch.kernels.emulator_block.emulator_block import (
     emulator_block_cuda, emulator_block_grid_cuda, emulator_block_grid_plain,
     emulator_block_plain, emulator_block_unified_cuda,
@@ -19,9 +20,7 @@ from repro_torch.kernels.emulator_block.emulator_block import (
 
 
 def _on_cuda(t: torch.Tensor) -> bool:
-    if t.device.type not in ("cuda", "cpu"):
-        raise ValueError(f"no emulator kernel for device {t.device}")
-    return t.device.type == "cuda"
+    return on_cuda(t, "emulator")
 
 
 def emulator_block(params: dict, x: torch.Tensor,
@@ -50,13 +49,20 @@ def emulator_block_grid(params: dict, v01: torch.Tensor, g_norm: torch.Tensor,
 def emulator_block_unified(aux: dict, pre: dict, u01: torch.Tensor,
                            pos01: torch.Tensor, *,
                            shift: Optional[torch.Tensor] = None,
-                           chunk: Optional[int] = None) -> torch.Tensor:
+                           chunk: Optional[int] = None,
+                           compute_dtype=torch.float32) -> torch.Tensor:
     """Both rails of every (row, crossbar block) pair, every corner (B1).
 
     ``shift`` is the fc0 epilogue (``sfeat @ aux["f0_scen"]``; None at the
     ideal corner of a plain net); ``chunk`` is the plain version's row
-    chunk.  Returns (2, M*NB*NO, O)."""
+    chunk.  ``compute_dtype=torch.bfloat16`` is the reference kernel's
+    bf16 mode (bf16 GEMM operands, float32 accumulation), on the card and
+    on the CPU alike; the reference dispatcher's XLA route ignores
+    ``compute_dtype``, this one does not.  Returns (2, M*NB*NO, O)
+    float32."""
     if _on_cuda(u01):
-        return emulator_block_unified_cuda(aux, pre, u01, pos01, shift=shift)
+        return emulator_block_unified_cuda(aux, pre, u01, pos01, shift=shift,
+                                           compute_dtype=compute_dtype)
     return emulator_block_unified_plain(aux, pre, u01, pos01, shift=shift,
-                                        chunk=2 if chunk is None else chunk)
+                                        chunk=2 if chunk is None else chunk,
+                                        compute_dtype=compute_dtype)

@@ -64,6 +64,54 @@ def test_dispatcher_cpu_matches_reference(g, npf, NB, NO, M, shift):
     assert eb.emulator_block_unified_cuda.launches == 0
 
 
+# B1's bf16 mode (GEMM operands rounded to bf16, float32 accumulation): the
+# port's plain version against the reference's interpret-mode kernel in
+# bf16 mode at atol 1e-2 -- a bf16 rounding of one GEMM operand can flip
+# where the two packages' float32 inputs to it differ in the last bit
+# (measured 3.4e-3 on CASE_A, 0 on CASE_B and 1.2e-7 on the conditioned
+# net, on outputs of magnitude 3.5) -- and against the port's own float32 mode at
+# the ROADMAP B1 gate, atol 5e-2 (measured 0.023, 0.039 and 0.030).
+@pytest.mark.parametrize("g,npf,NB,NO,M,shift", [
+    ("A", 0, 2, 3, 5, None), ("B", 0, 2, 2, 3, None),
+    ("A", 15, 2, 2, 3, "flat")])
+def test_bf16_mode_matches_reference_kernel(g, npf, NB, NO, M, shift):
+    eb.emulator_block_unified_cuda.launches = 0
+    (ra, rpre, ru, rp), (ta, tpre, tu, tp) = _setup(g, npf, NB, NO, M)
+    sh = None
+    if shift:
+        f = ta["fcs"][0][0].shape[1]
+        sh = (0.2 * np.random.default_rng(9).standard_normal(f)).astype(np.float32)
+    want = ref_unified(ra, rpre, ru, rp, use_pallas=True, interpret=True,
+                       tune=False, compute_dtype=jnp.bfloat16,
+                       shift=None if sh is None else jnp.asarray(sh))
+    tsh = None if sh is None else torch.from_numpy(sh)
+    got = emulator_block_unified(ta, tpre, tu, tp, shift=tsh,
+                                 compute_dtype=torch.bfloat16)
+    assert eb.emulator_block_unified_cuda.launches == 0
+    assert got.dtype == torch.float32
+    assert_close(got, want, 0.0, 1e-2, "vs the reference kernel's bf16 mode")
+    f32 = emulator_block_unified(ta, tpre, tu, tp, shift=tsh)
+    assert_close(got, f32, 0.0, 5e-2, "bf16 mode vs float32 mode")
+    assert not torch.equal(got, f32)
+
+
+def test_bf16_dot_rounds_both_operands():
+    rng = np.random.default_rng(4)
+    a = torch.from_numpy(rng.standard_normal((5, 16)).astype(np.float32))
+    b = torch.from_numpy(rng.standard_normal((16, 8)).astype(np.float32))
+    want = a.to(torch.bfloat16).double() @ b.to(torch.bfloat16).double()
+    got = eb.bf16_dot(a, b)
+    assert got.dtype == torch.float32
+    assert_close(got, want, 1e-6, 1e-6)
+
+
+def test_compute_dtype_is_float32_or_bf16():
+    _, (ta, tpre, tu, tp) = _setup("A", 0, 1, 2, 2)
+    for fn in (emulator_block_unified, eb.emulator_block_unified_cuda):
+        with pytest.raises(TypeError, match="compute_dtype"):
+            fn(ta, tpre, tu, tp, compute_dtype=torch.float16)
+
+
 def test_chunk_choice_is_neutral():
     _, (ta, tpre, tu, tp) = _setup("A", 0, 2, 2, 7)
     outs = [emulator_block_unified(ta, tpre, tu, tp, chunk=c) for c in (1, 2, 3, 7)]

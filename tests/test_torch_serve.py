@@ -208,7 +208,11 @@ print('MISSING', [m for m in NEW if m not in sys.modules])
     new = ["repro_torch.core." + m for m in ("circuit", "analytic", "theory",
                                               "emulator")]
     new += ["repro_torch.launch.quickstart",
-            "repro_torch.kernels.emulator_block.ops"]
+            "repro_torch.kernels.emulator_block.ops",
+            "repro_torch.kernels._build"]
+    new += [f"repro_torch.kernels.{k}.{m}"
+            for k in ("xbar_mac", "flash_attention", "linear_scan")
+            for m in ("ops", "ref", k)]
     code = f"NEW = {new!r}\n" + code
     env = dict(os.environ)
     env.pop("PYTHONPATH", None)
