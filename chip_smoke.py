@@ -10,7 +10,9 @@ JAX or of the JAX package.  Phases (any failure exits non-zero):
   1. build every kernel from ``src/repro_torch`` (one nvcc per source, in
      parallel): B1 (unified evaluator), B2 (per-block network), B3 (grid
      network), B4 (crossbar MAC), B5 (flash attention), B6 (linear scan);
-     ptxas registers / shared memory / spills
+     ptxas registers / shared memory / spills; the tensor-core
+     instructions (HMMA, HGMMA) in each library's SASS, which B4 and B5
+     must have
   2. the emulator kernels against their plain PyTorch versions on the
      card, fp32 with TF32 off, at small shapes (ragged tiles, CASE_A and
      CASE_B, plain and conditioned periph widths; B1 in both modes) and at
@@ -43,7 +45,10 @@ JAX or of the JAX package.  Phases (any failure exits non-zero):
      7b's selective-scan state, recurrentgemma-2b's RG-LRU); each held
      against its plain version (fp32 rtol 1e-4 / atol 1e-5, bf16 rtol
      1e-2 / atol 1e-2) and timed beside its bound and, where one PyTorch
-     call computes the same function, that call (``library_ms``)
+     call computes the same function, that call (``library_ms``, timed
+     in turns with the kernel, the median of 7 event pairs each) and the
+     ratio to it; B4's and B5's fp32 rows, which run as 3xTF32, carry a
+     bound at three TF32 passes beside the one at fp32's CUDA-core rate
   8. a JSON ``kernels`` line, then the card line, then the result line.
 """
 from __future__ import annotations
@@ -63,6 +68,7 @@ SLOW_RTOL, SLOW_ATOL = 2e-4, 1e-5     # slow path vs fast path (reference's)
 HBM_BYTES_S = 3.35e12        # H100 SXM HBM3
 FP32_FLOP_S = 67e12          # H100 SXM fp32 outside the tensor cores
 BF16_FLOP_S = 989e12         # H100 SXM dense bf16 on the tensor cores
+TF32X3_FLOP_S = 495e12 / 3   # fp32 as three TF32 tensor-core products
 GEMMA = dict(d_model=1152, d_ff=6912)
 # the emulator's training budget on the card: 50 epochs on the Table 1
 # set, lr 2e-3 halved at the quickstart's points stretched to 50 epochs
@@ -178,6 +184,31 @@ def cuda_ms(fn, iters, warmup=2):
     return a.elapsed_time(b) / iters
 
 
+def paired_ms(fns, iters, reps=7, warmup=2):
+    """Median time of each of ``fns`` over ``reps`` event pairs of
+    ``iters`` calls each, the functions taking turns within a rep: a
+    stall of the card or the host weighs on one pair, not on a whole
+    reading, and not on one function more than another."""
+    import statistics
+    import torch
+    for fn in fns:
+        for _ in range(warmup):
+            fn()
+    torch.cuda.synchronize()
+    pairs = [[] for _ in fns]
+    for _ in range(reps):
+        for fn, ps in zip(fns, pairs):
+            a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            a.record()
+            for _ in range(iters):
+                fn()
+            b.record()
+            ps.append((a, b))
+    torch.cuda.synchronize()
+    return [statistics.median(a.elapsed_time(b) / iters for a, b in ps)
+            for ps in pairs]
+
+
 def host_ms(fn, iters, warmup=1):
     """Host clock around calls that end in a synchronize (a whole matmul
     through the executor, host work included)."""
@@ -201,10 +232,12 @@ def compare(label, got, want, rtol=RTOL, atol=ATOL):
     err = (got - want).abs()
     mabs = float(err.max()) if err.numel() else 0.0
     rel = float((err / want.abs().clamp_min(1e-30)).max()) if err.numel() else 0.0
+    # the largest share of its allowance (atol + rtol * |want|) an element uses
+    use = float((err / (atol + rtol * want.abs())).max()) if err.numel() else 0.0
     ok = bool((err <= atol + rtol * want.abs()).all()) and bool(
         torch.isfinite(got).all())
     print(f"[kernel vs plain] {label}: max_abs={mabs:.3e} max_rel={rel:.3e} "
-          f"{'ok' if ok else 'FAIL'}", flush=True)
+          f"gate use {use:.2f} {'ok' if ok else 'FAIL'}", flush=True)
     if not ok:
         fail(f"[{label}] disagrees beyond rtol {rtol} / atol {atol}")
     return mabs
@@ -261,9 +294,11 @@ def main() -> None:
         for P in (0, 2, 15):
             print(f"[build] B2/B3 dynamic shared memory {geom.name} P={P}: "
                   f"{eb.block_smem_bytes(geom, P)} B", flush=True)
+    tensor_core_counts(built)
     fa = importlib.import_module("repro_torch.kernels.flash_attention.flash_attention")
     for D in (64, 128, 256):
-        print(f"[build] B5 dynamic shared memory D={D}: {fa.smem_bytes(D)} B",
+        print(f"[build] B5 dynamic shared memory D={D}: fp32 "
+              f"{fa.smem_bytes(D)} B, bf16 {fa.smem_bytes(D, BF16)} B",
               flush=True)
 
     # ---- phase 2: kernel vs plain ---------------------------------------
@@ -738,6 +773,27 @@ def main() -> None:
         "count": torch.cuda.device_count()}}), flush=True)
 
 
+def tensor_core_counts(built):
+    """Print the count of tensor-core instructions (HMMA, HGMMA) in each
+    built library's SASS; fail if B4's or B5's library has none."""
+    import shutil
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    counts = {}
+    for src, (lib, _) in built.items():
+        sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                              text=True, timeout=300)
+        if sass.returncode != 0:
+            fail(f"cuobjdump -sass {lib.name} failed: {sass.stderr.strip()}")
+        # as grep -cE 'HMMA|HGMMA' counts them: lines that hold either
+        counts[src.stem] = sum(1 for line in sass.stdout.splitlines()
+                               if "HMMA" in line or "HGMMA" in line)
+        print(f"[build] {lib.name}: {counts[src.stem]} tensor-core "
+              f"instructions (HMMA|HGMMA) in its SASS", flush=True)
+    for stem in ("xbar_mac", "flash_attention"):
+        if not counts.get(stem):
+            fail(f"{stem}'s library has no tensor-core instruction")
+
+
 def entry(name, source, replaces, launches, err, head, shapes):
     """One kernel's record of the ``kernels`` line: ``source`` under the
     port's kernels, ``replaces`` under the JAX package's; ``head`` is the
@@ -779,19 +835,37 @@ def entry_points_phase(dev, card):
     dtypes = (("fp32", torch.float32, RTOL, ATOL, FP32_FLOP_S),
               ("bf16", torch.bfloat16, BF16_RTOL, BF16_ATOL, BF16_FLOP_S))
 
-    def shape_row(shape, dname, ms, pms, lms, nbytes, ops, peak, **extra):
-        bms, by = bound_ms(nbytes, (ops, peak))
+    def shape_row(shape, dname, ms, pms, lms, nbytes, ops, peak,
+                  fp32_rate=None, **extra):
+        """One timed shape, with its ratio to the library call where there
+        is one.  ``fp32_rate``: the rate the kernel's fp32 mode runs its
+        products at (3xTF32 for B4 and B5); the fp32 row's bound is taken
+        at that rate, with the one at fp32's CUDA-core rate beside it."""
+        tf32x3 = fp32_rate is not None and dname == "fp32"
+        rate = fp32_rate if tf32x3 else peak
+        bms, by = bound_ms(nbytes, (ops, rate))
+        note = ""
+        if tf32x3:
+            extra["bound_rate"] = "3xTF32, 495/3 = 165 TFLOP/s"
+            extra["bound_ms_fp32_cores"] = bound_ms(nbytes, (ops, peak))[0]
+            note = (f"; at fp32's CUDA-core {peak / 1e12:.0f} TFLOP/s "
+                    f"{extra['bound_ms_fp32_cores']:.4f} ms")
+        if lms is not None:
+            extra["vs_library"] = ms / lms
+            note += f"; kernel / library {ms / lms:.2f}x"
         print(f"[time] {shape} {dname}: kernel {ms:.4f} ms, plain {pms:.4f} ms, "
               f"library {'none' if lms is None else f'{lms:.4f} ms'}, bound "
               f"{bms:.4f} ms ({by}: {nbytes / 1e6:.1f} MB, {ops / 1e9:.3f} "
-              f"GFLOP at {peak / 1e12:.0f} TFLOP/s) [{card}]", flush=True)
+              f"GFLOP at {rate / 1e12:.0f} TFLOP/s{note}) [{card}]", flush=True)
         return dict(shape=shape, dtype=dname, ms=ms, plain_ms=pms,
                     library_ms=lms, bound_ms=bms, bound_by=by, bytes=nbytes,
-                    flops=ops, peak_tflop_s=peak / 1e12, **extra)
+                    flops=ops, peak_tflop_s=rate / 1e12, **extra)
 
     # -- B4: a gemma3-1b MLP projection as one nonlinear crossbar MAC ------
     d_model, d_ff = GEMMA["d_model"], GEMMA["d_ff"]
     cases = [("ragged", 100, 70, 130),
+             ("ragged, split K, element-wise staging", 5, 1001, 77),
+             ("ragged, split K", 100, d_model, 1000),
              ("gemma3-1b mlp.up", 4, d_model, d_ff),
              ("gemma3-1b mlp.up", 128, d_model, d_ff),
              ("gemma3-1b mlp.up", 2048, d_model, d_ff),
@@ -811,6 +885,9 @@ def entry_points_phase(dev, card):
             launches += xm.xbar_mac_cuda.launches
             want = xm.xbar_mac_plain(v, g)
             shape = f"B4 {label} ({M}, {K}) @ ({K}, {N})"
+            plan = xm.launch_plan(M, K, N)
+            if dname == "fp32":
+                print(f"[B4] {shape}: launch plan {plan}", flush=True)
             err = max(err, compare(f"{shape} {dname}", got.float(), want.float(),
                                    rtol, atol))
             vf = v.float()
@@ -819,15 +896,16 @@ def entry_points_phase(dev, card):
             print(f"[B4] {shape} {dname}: median |gain * acc / v_sat| {med:.3f}",
                   flush=True)
             it = 20 if M * K * N < 1e9 else 5
-            ms = cuda_ms(lambda: xbar_mac(v, g), iters=it)
-            pms = cuda_ms(lambda: xm.xbar_mac_plain(v, g), iters=it)
             dl = drive.to(dt)
-            lms = cuda_ms(lambda: torch.matmul(dl, g), iters=it)
+            ms, lms = paired_ms([lambda: xbar_mac(v, g),
+                                 lambda: torch.matmul(dl, g)], iters=it)
+            pms = cuda_ms(lambda: xm.xbar_mac_plain(v, g), iters=it)
             shapes.append(shape_row(
                 shape, dname, ms, pms, lms,
                 (M * K + K * N + M * N) * v.element_size(),
                 2 * M * K * N + 5 * M * K + 4 * M * N, peak,
-                median_gain_acc=med,
+                fp32_rate=TF32X3_FLOP_S,
+                median_gain_acc=med, plan=plan,
                 library="torch.matmul(drive, g): cuBLAS, the product alone"))
             del v, g, got, want, drive, dl
     head = next(r for r in shapes if r["shape"].startswith("B4 gemma3-1b mlp.up "
@@ -860,8 +938,6 @@ def entry_points_phase(dev, card):
                                    want.float(), rtol, atol))
             del got, want
             it = 5 if S >= 4096 else 20
-            ms = cuda_ms(lambda: flash_attention(q, k, v, causal=causal,
-                                                 window=window), iters=it)
             pms = cuda_ms(lambda: fa.flash_attention_plain(
                 *flat, causal=causal, window=window),
                 iters=2, warmup=1)
@@ -871,16 +947,18 @@ def entry_points_phase(dev, card):
                 band = (qi - ki) < window
                 if causal:
                     band &= ki <= qi
-                lms = cuda_ms(lambda: F.scaled_dot_product_attention(
-                    q, k, v, attn_mask=band), iters=it)
-                del band
+                sdpa = dict(attn_mask=band)
             else:
-                lms = cuda_ms(lambda: F.scaled_dot_product_attention(
-                    q, k, v, is_causal=causal), iters=it)
+                sdpa = dict(is_causal=causal)
+            ms, lms = paired_ms(
+                [lambda: flash_attention(q, k, v, causal=causal, window=window),
+                 lambda: F.scaled_dot_product_attention(q, k, v, **sdpa)],
+                iters=it)
+            del sdpa
             pairs = H * attention_pairs(S, causal, window)
             shapes.append(shape_row(
                 shape, dname, ms, pms, lms, 4 * H * S * D * q.element_size(),
-                4 * D * pairs, peak, pairs=pairs,
+                4 * D * pairs, peak, fp32_rate=TF32X3_FLOP_S, pairs=pairs,
                 library="F.scaled_dot_product_attention (causal flag or a "
                         "boolean band mask)"))
             del q, k, v, flat

@@ -3,16 +3,19 @@
 Every kernel source is ``kernels/<package>/csrc/*.cu``.  Each compiles
 with ``nvcc`` for ``sm_90a`` into one shared library with a plain C
 interface, at first use, into ``build/`` beside this file (a gitignored
-directory), and is loaded through ``ctypes``.  A library's file name
-carries a hash of its source and of the flags, so an edited source builds
-anew.  Nothing is compiled or loaded at import time: the kernel modules
-import on a machine without ``nvcc`` or a card.
+directory), and is loaded through ``ctypes``.  Sources may include shared
+headers (``kernels/common/csrc/*.cuh``) by relative path.  A library's
+file name carries a hash of its source, of the headers it includes and of
+the flags, so an edited source or header builds anew.  Nothing is
+compiled or loaded at import time: the kernel modules import on a machine
+without ``nvcc`` or a card.
 """
 from __future__ import annotations
 
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -44,10 +47,33 @@ def _nvcc() -> str:
     return path
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.M)
+
+
+def _with_headers(source: Path) -> Tuple[Path, ...]:
+    """The source and every header it includes with ``#include "..."``,
+    directly or through another header, each once, in the order found."""
+    seen, todo = [], [source.resolve()]
+    while todo:
+        path = todo.pop(0)
+        if path in seen:
+            continue
+        seen.append(path)
+        for name in _INCLUDE.findall(path.read_bytes()):
+            header = (path.parent / name.decode()).resolve()
+            if header.is_file():
+                todo.append(header)
+    return tuple(seen)
+
+
 def _lib_path(source: Path) -> Path:
-    tag = hashlib.sha1(source.read_bytes()
-                       + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{source.stem}_{tag}.so"
+    """The library's path: its name carries a hash of the source, of every
+    header it includes and of the flags, so an edit to any of them builds
+    anew."""
+    h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+    for path in _with_headers(source):
+        h.update(path.read_bytes())
+    return BUILD_DIR / f"lib{source.stem}_{h.hexdigest()[:12]}.so"
 
 
 def build_all(srcs: Optional[Iterable[Path]] = None

@@ -3,13 +3,16 @@ plain PyTorch version.
 
 ``flash_attention_cuda`` replaces the JAX package's
 ``kernels/flash_attention/flash_attention.py:flash_attention_pallas``
-(``csrc/flash_attention.cu``); ``flash_attention_plain`` is the same
-blockwise online softmax in plain PyTorch.  Both follow the reference
-kernel's numerics: q widened to float32 and scaled before the q.k^T
-product, the finite mask value ``NEG_INF``, a float32 running max, sum
-and accumulator, p rounded to v's dtype before the p.v product, and a
-final division by ``max(l, 1e-20)``.  q/k/v: (BH, S, D); the output is in
-v's dtype.  The source is built by ``kernels._build``; nothing is
+(``csrc/flash_attention.cu``: both products on the tensor cores, bf16
+``mma.sync`` for bf16 inputs and 3xTF32 for float32 ones, K/V tiles of 32
+keys double-buffered through ``cp.async``); ``flash_attention_plain`` is
+the same blockwise online softmax in plain PyTorch.  Both follow the
+reference kernel's numerics: the finite mask value ``NEG_INF``, a float32
+running max, sum and accumulator, p rounded to v's dtype before the p.v
+product, and a final division by ``max(l, 1e-20)``; the kernel scales the
+score q.k after the product where the reference scales q before it, which
+moves results by float32 rounding only.  q/k/v: (BH, S, D); the output is
+in v's dtype.  The source is built by ``kernels._build``; nothing is
 compiled or loaded at import time.
 """
 from __future__ import annotations
@@ -34,17 +37,18 @@ def _library():
         lib.flash_attention.argtypes = (
             [ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
             + [ctypes.c_float] + [ctypes.c_int] * 2 + [ctypes.c_void_p])
-        lib.flash_attention_smem_bytes.argtypes = [ctypes.c_int]
+        lib.flash_attention_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
         for f in (lib.flash_attention, lib.flash_attention_smem_bytes):
             f.restype = ctypes.c_int
         _LIB["lib"] = lib
     return _LIB["lib"]
 
 
-def smem_bytes(D: int) -> int:
-    """Dynamic shared memory one thread block takes at head dim D, as the
-    compiled library reckons it; builds the library if needed."""
-    return int(_library().flash_attention_smem_bytes(D))
+def smem_bytes(D: int, dtype: torch.dtype = torch.float32) -> int:
+    """Dynamic shared memory one thread block takes at head dim D for
+    inputs of ``dtype``, as the compiled library reckons it; builds the
+    library if needed."""
+    return int(_library().flash_attention_smem_bytes(_DTYPES[dtype], D))
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -106,7 +110,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"head dim {D} outside the kernel's 1..{MAX_D}")
     if window < 0:
         raise ValueError(f"window must be >= 0 (got {window})")
-    if BH >= 2 ** 31 or S >= 2 ** 31 or -(-S // 64) > 65535:
+    if BH * -(-S // 64) >= 2 ** 31:
         raise ValueError(f"shape {(BH, S, D)} exceeds the grid")
     out = torch.empty_like(v)
     if out.numel() == 0:

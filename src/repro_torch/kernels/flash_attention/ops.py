@@ -21,10 +21,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     (B, H) is flattened into one axis.  The reference wrapper's pad of D
     to 128 lanes is a TPU layout matter and is not ported.  ``block_kv``
     is the online softmax's step on the CPU (the plain version), as in
-    the reference kernel; the CUDA kernel steps over 64 keys at a time
-    and 64 query rows per thread block whatever ``block_q``/``block_kv``
-    say, which moves the result only by float32 rounding (and, in bf16, by
-    where p is rounded)."""
+    the reference kernel; the CUDA kernel steps over 32 keys at a time,
+    64 query rows per thread block (16 per warp), whatever
+    ``block_q``/``block_kv`` say, and runs both products on the tensor
+    cores (bf16 ``mma.sync`` for bf16, 3xTF32 for float32, fp32
+    accumulation), which moves the result only by float32 rounding (and,
+    in bf16, by where p is rounded)."""
     B, H, S, D = q.shape
     flat = [t.reshape(B * H, S, D) for t in (q, k, v)]
     if on_cuda(q, "flash_attention"):

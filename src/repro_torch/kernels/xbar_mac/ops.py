@@ -21,9 +21,11 @@ def xbar_mac(v: torch.Tensor, g: torch.Tensor, *, v_th: float = 0.08,
 
     ``block_b``/``block_n``/``block_k`` are the TPU kernel's tile sizes,
     accepted for the reference's signature.  Neither version reads them:
-    the CUDA kernel's tile is fixed (64 x 64 outputs, K in steps of 32, the
-    ragged edges masked), and the result does not depend on the tile up to
-    float32 summation order."""
+    the CUDA kernel picks its tile from B and N (128 x 128, 64 x 64, or
+    16 x 128 for B <= 16; K in steps of 32, split across blocks where the
+    tiles alone would not fill the card; the ragged edges masked), and the
+    result does not depend on the tile up to float32 summation order.  In
+    bf16 both versions round the drive to bf16 before the product."""
     if on_cuda(v, "xbar_mac"):
         return xbar_mac_cuda(v, g, v_th=v_th, beta=beta, gain=gain, v_sat=v_sat)
     return xbar_mac_plain(v, g, v_th=v_th, beta=beta, gain=gain, v_sat=v_sat)

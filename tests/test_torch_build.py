@@ -39,6 +39,38 @@ def test_library_name_follows_the_source_bytes(tmp_path):
     assert _build._lib_path(src) != first
 
 
+def test_library_name_follows_the_headers_it_includes(tmp_path):
+    """A header edit (direct or through another header) builds anew; a
+    header the source does not include does not count."""
+    (tmp_path / "common").mkdir()
+    outer = tmp_path / "common" / "outer.cuh"
+    inner = tmp_path / "common" / "inner.cuh"
+    other = tmp_path / "common" / "other.cuh"
+    outer.write_text('#pragma once\n#include "inner.cuh"\n')
+    inner.write_text("#pragma once\nconstexpr int k = 1;\n")
+    other.write_text("#pragma once\n")
+    src = tmp_path / "k.cu"
+    src.write_text('#include "common/outer.cuh"\n#include <cuda_runtime.h>\n'
+                   'extern "C" int f() { return k; }\n')
+    assert [p.name for p in _build._with_headers(src)] == [
+        "k.cu", "outer.cuh", "inner.cuh"]
+    first = _build._lib_path(src)
+    other.write_text("#pragma once\nconstexpr int j = 2;\n")
+    assert _build._lib_path(src) == first
+    inner.write_text("#pragma once\nconstexpr int k = 2;\n")
+    second = _build._lib_path(src)
+    assert second != first and second.name.startswith("libk_")
+    outer.write_text('#pragma once\n#include "inner.cuh"\n// edited\n')
+    assert _build._lib_path(src) not in (first, second)
+
+
+def test_port_kernels_include_the_shared_header():
+    shared = _build.KERNELS_DIR / "common" / "csrc" / "sm90_mma.cuh"
+    for pkg in ("flash_attention", "xbar_mac"):
+        src = _build.KERNELS_DIR / pkg / "csrc" / f"{pkg}.cu"
+        assert shared.resolve() in _build._with_headers(src)
+
+
 @pytest.fixture(scope="module")
 def imported_without_nvcc():
     """Import every kernel module in a fresh interpreter with no ``nvcc``

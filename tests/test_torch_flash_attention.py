@@ -69,16 +69,60 @@ def test_ragged_sequence_matches_the_oracle(dt):
 
 
 def test_key_step_moves_only_rounding():
-    """The CUDA kernel steps over 64 keys, the reference over 128: in
+    """The CUDA kernel steps over 32 keys, the reference over 128: in
     float32 the online softmax's step changes nothing but rounding."""
     _, tq = _inputs(1, 2, 256, 64, "f32")
     flat = [t.reshape(2, 256, 64) for t in tq]
     for causal, window in ((True, 0), (True, 100), (False, 0)):
         a = fa.flash_attention_plain(*flat, causal=causal, window=window,
-                                     block_kv=64)
+                                     block_kv=32)
         b = fa.flash_attention_plain(*flat, causal=causal, window=window,
                                      block_kv=128)
         assert_close(a, b, 2e-6, 2e-6, f"causal={causal} window={window}")
+
+
+def _kernel_numerics(q, k, v, *, causal, window, block_kv=32):
+    """The CUDA kernel's arithmetic in plain PyTorch: the score scaled
+    after the q.k product, exp taken as exp2 with scale*log2(e) folded into
+    one float32 factor, 32-key steps, p rounded to v's dtype for p.v."""
+    BH, S, D = q.shape
+    c = torch.tensor(D ** -0.5 * 1.4426950408889634, dtype=torch.float32)
+    m = torch.full((BH, S), fa.NEG_INF)
+    l = torch.zeros((BH, S))
+    acc = torch.zeros((BH, S, D))
+    qp = torch.arange(S)[:, None]
+    for k0 in range(0, S, block_kv):
+        k1 = min(S, k0 + block_kv)
+        s = (q.float() @ k[:, k0:k1].float().transpose(1, 2)) * c
+        kp = torch.arange(k0, k1)[None, :]
+        live = torch.ones((S, k1 - k0), dtype=torch.bool)
+        if causal:
+            live &= kp <= qp
+        if window:
+            live &= (qp - kp) < window
+        s = torch.where(live, s, fa.NEG_INF)
+        m_new = torch.maximum(m, s.amax(-1))
+        p = torch.exp2(s - m_new[..., None])
+        alpha = torch.exp2(m - m_new)
+        l = l * alpha + p.sum(-1)
+        m = m_new
+        acc = acc * alpha[..., None] + p.to(v.dtype).float() @ v[:, k0:k1].float()
+    return (acc / l.clamp_min(1e-20)[..., None]).to(v.dtype)
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_scale_after_product_and_exp2_move_only_rounding(dt):
+    """The kernel scales q.k after the product and takes exp2 of
+    log2(e)-scaled scores; against the plain version (q scaled first,
+    exp) that moves results by float32 rounding, and in bf16 by at most
+    one bf16 ulp where p's rounding flips."""
+    _, tq = _inputs(1, 3, 200, 48, dt)
+    flat = [t.reshape(3, 200, 48) for t in tq]
+    tol = 2e-6 if dt == "f32" else DTYPES[dt][2]
+    for causal, window in ((True, 0), (True, 64), (False, 0)):
+        got = _kernel_numerics(*flat, causal=causal, window=window)
+        want = fa.flash_attention_plain(*flat, causal=causal, window=window)
+        assert_close(got, want, tol, tol, f"causal={causal} window={window}")
 
 
 def test_cuda_entry_refuses_cpu_tensors():
