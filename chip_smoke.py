@@ -10,25 +10,28 @@ JAX or of the JAX package.  Phases (any failure exits non-zero):
   1. build every kernel from ``src/repro_torch`` (one nvcc per source, in
      parallel): B1 (unified evaluator), B2 (per-block network), B3 (grid
      network), B4 (crossbar MAC), B5 (flash attention), B6 (linear scan);
-     ptxas registers / shared memory / spills; the tensor-core
-     instructions (HMMA, HGMMA) in each library's SASS, which B4 and B5
-     must have
+     ptxas registers / shared memory / spills (and B1's fp32 template's
+     on their own line); the tensor-core instructions (HMMA, HGMMA) in
+     each library's SASS, which B4 and B5 must have
   2. the emulator kernels against their plain PyTorch versions on the
      card, fp32 with TF32 off, at small shapes (ragged tiles, CASE_A and
-     CASE_B, plain and conditioned periph widths; B1 in both modes) and at
-     the full-width gemma3-1b MLP shapes; outputs compared at rtol 1e-4 /
-     atol 1e-5
+     CASE_B, plain and conditioned periph widths; B1 in both modes, given
+     the plan's g_norm, which its fp32 kernel folds into the per-plan
+     precompute itself) and at the full-width gemma3-1b MLP shapes;
+     outputs compared at rtol 1e-4 / atol 1e-5
   3. the emulator lifecycle at the paper's sizes through the port's
      quickstart: label the Table 1 dataset (50,000 + 5,000 CASE_A blocks)
      with the circuit solver, train a Conv4Xbar on it (B2 evaluates the
      test set), save it; then the serving CLI on gemma3-1b at full width,
-     depth cut to 2 layers, MLP projections on that trained emulator (B1);
-     plus the analog matmul on the card against the port's CPU path
+     depth cut to 2 layers, MLP projections on that trained emulator (B1,
+     which must run without a host-side ``blocklast_precompute``); plus
+     the analog matmul on the card against the port's CPU path
   4. B1's times at full-width ``mlp.up`` and ``mlp.down`` (CUDA events)
      beside the least time the card could take; B1's bf16 mode driven
      through the dispatcher at the same shapes, held against its plain
      version (rtol 1e-4 / atol 1e-5) and against the fp32 mode (atol
-     5e-2), and timed
+     5e-2), and timed (its call includes the per-plan precompute, timed
+     on its own line: only the bf16 mode still builds it)
   5. the paper's headline: time per CASE_A block for the circuit solver,
      the analytic model, the plain network and B2, at 2,048 and 65,536
      blocks
@@ -82,18 +85,25 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
-def unified_work(M, NB, NO, D, W, O, flat, shift):
+def unified_work(M, NB, NO, D, W, O, flat, shift, fold=True):
     """(bytes, GEMM operations, other operations) the unified block
     evaluator must move and do for one call: every input read once, the
     output written once; an FMA counts 2, an expm1 (inside CELU) 1, a bias
     starts its accumulator (as ``net_flops`` counts).  The GEMM operations
     are the products of the stage-1 window contraction, the tail stages,
-    the W-stage and the FC head (bf16 operands in the bf16 mode)."""
+    the W-stage and the FC head (bf16 operands in the bf16 mode).
+    ``fold``: the fp32 kernel, which reads the plan's g_norm and stage 0's
+    weights and computes the per-plan precompute once per block (g0's
+    multiply and add, celu0's expm1, the y0 product and bias); else the
+    bf16 mode's kernel, which reads g0k, celu0k and y0."""
     G, K1, C0, O1 = 32, 2, 16, 8
     nblk = NB * NO
     P = D * W * G
     n_in = 2 * M * NB * D * G * K1                       # u, pos
-    n_pre = 2 * nblk * K1 * P * C0 + nblk * P * O1       # g0k, celu0k, y0
+    if fold:
+        n_pre = nblk * P * K1 + 2 * C0 + O1              # g_norm, w0g, b0, b1
+    else:
+        n_pre = 2 * nblk * K1 * P * C0 + nblk * P * O1   # g0k, celu0k, y0
     n_w = (C0 + K1 * C0 * O1 + 32 * 4 + 4 + 32 * 32 + 32 + 64 * 32 + 32
            + flat * 32 + 32 + 32 * 16 + 16 + 16 * O + O)
     n_sh = 0 if shift is None else shift.numel()
@@ -110,7 +120,12 @@ def unified_work(M, NB, NO, D, W, O, flat, shift):
     other = taps * (4 * C0 + 3 * O1) + P * 5 * O1 + 2 * (
         (P // 4) * 4 + (P // 32) * 32 + D * wo * 32 + 32
         + (32 if shift is not None else 0) + 16)
-    return nbytes, M * nblk * gemm, M * nblk * other
+    gemm_fold = other_fold = 0
+    if fold:
+        gemm_fold = nblk * P * K1 * C0 * O1 * 2
+        other_fold = nblk * (taps * C0 * 3 + P * O1)
+    return (nbytes, M * nblk * gemm + gemm_fold,
+            M * nblk * other + other_fold)
 
 
 def net_layers(geom, P):
@@ -290,6 +305,13 @@ def main() -> None:
             if any(k in line for k in ("Compiling entry", "registers", "spill",
                                        "error")):
                 print(f"[build]   {line.strip()}", flush=True)
+    b1_src = next(src for src in built if src.name == "emulator_block_unified.cu")
+    for kernel, stats in ptxas_stats(built[b1_src][1]).items():
+        if "fused_kernel" in kernel:
+            print(f"[build] B1 fp32 template {kernel}: {stats}", flush=True)
+    for gid, geom in enumerate((CASE_A, CASE_B)):
+        print(f"[build] B1 fp32 dynamic shared memory {geom.name}: "
+              f"{eb.unified_smem_bytes(gid)} B", flush=True)
     for geom in (CASE_A, CASE_B):
         for P in (0, 2, 15):
             print(f"[build] B2/B3 dynamic shared memory {geom.name} P={P}: "
@@ -350,7 +372,7 @@ def main() -> None:
     for i, (label, geom, npf, K, N, M, bm, sh) in enumerate(cases):
         params, aux = net(geom, npf)
         plan, u, pos = inputs(geom, K, N, M, 100 + i)
-        pre = conv4xbar.blocklast_precompute(aux, plan.g_norm)
+        gn = plan.g_norm.contiguous()
         shift = None
         if sh is not None:
             f = aux["fcs"][0][0].shape[1]
@@ -358,26 +380,24 @@ def main() -> None:
             g.manual_seed(200 + i)
             shp = (f,) if sh == "flat" else (plan.n_blocks, f)
             shift = 0.2 * torch.randn(shp, generator=g, device=dev)
-        got = eb.emulator_block_unified_cuda(aux, pre, u, pos, shift=shift,
+        got = eb.emulator_block_unified_cuda(aux, gn, u, pos, shift=shift,
                                              block_m=bm)
         torch.cuda.synchronize()
-        want = eb.emulator_block_unified_plain(aux, pre, u, pos, shift=shift)
+        want = eb.emulator_block_unified_plain(aux, gn, u, pos, shift=shift)
         torch.cuda.synchronize()
         max_abs["B1"] = max(max_abs["B1"], compare(
             f"B1 {label}: NB={plan.NB} NO={plan.NO} M={M}", got, want))
         if not label.startswith("mlp."):    # bf16 mode: full widths in phase 4
-            got = eb.emulator_block_unified_cuda(aux, pre, u, pos, shift=shift,
+            got = eb.emulator_block_unified_cuda(aux, gn, u, pos, shift=shift,
                                                  block_m=bm, compute_dtype=BF16)
             torch.cuda.synchronize()
-            want = eb.emulator_block_unified_plain(aux, pre, u, pos, shift=shift,
+            want = eb.emulator_block_unified_plain(aux, gn, u, pos, shift=shift,
                                                    compute_dtype=BF16)
             max_abs["B1 bf16"] = max(max_abs["B1 bf16"], compare(
                 f"B1 bf16 mode {label}: NB={plan.NB} NO={plan.NO} M={M}", got,
                 want))
         if label.startswith("mlp."):
-            timed[(label.split()[0], M)] = (aux, pre, u, pos, plan)
-        else:
-            del pre
+            timed[(label.split()[0], M)] = (aux, gn, u, pos, plan)
         del got, want
     torch.cuda.empty_cache()
 
@@ -458,19 +478,34 @@ def main() -> None:
     del qs, res
     torch.cuda.empty_cache()
 
+    # the fp32 fast path folds the precompute into B1: count any host-side
+    # build of it while serving
+    pre_calls = [0]
+    host_precompute = conv4xbar.blocklast_precompute
+
+    def counted_precompute(*a, **k):
+        pre_calls[0] += 1
+        return host_precompute(*a, **k)
+
+    conv4xbar.blocklast_precompute = counted_precompute
     eb.emulator_block_unified_cuda.launches = 0
     sess, out = serve.main([
         "--arch", "gemma3-1b", "--layers", "2", "--batch", "4",
         "--prompt-len", "32", "--gen", "8", "--seed", "0",
         "--analog-backend", "emulator", "--emulator-params", str(npz)])
     b1_launches = eb.emulator_block_unified_cuda.launches
+    conv4xbar.blocklast_precompute = host_precompute
+    if pre_calls[0]:
+        fail(f"serving built the per-plan precompute on the host "
+             f"{pre_calls[0]} times (B1's fp32 kernel folds it in)")
     n_fwd = 1 + (8 - 1)
     want_launches = 3 * 2 * n_fwd
     cfg = sess.cfg
     print(f"[serve] {cfg.name}: d_model={cfg.d_model} d_ff={cfg.d_ff} "
           f"vocab={cfg.vocab_size} layers={cfg.num_layers} sites="
           f"{len(sess.sites())} trained emulator {npz.name}, kernel launches="
-          f"{b1_launches}", flush=True)
+          f"{b1_launches}, host-side precompute builds {pre_calls[0]}",
+          flush=True)
     if (cfg.d_model, cfg.d_ff, cfg.vocab_size) != (1152, 6912, 262144):
         fail("serve did not run gemma3-1b at full width")
     if b1_launches != want_launches:
@@ -508,46 +543,62 @@ def main() -> None:
     # ---- phase 4: B1 times; B1's bf16 mode ---------------------------------
     b1_shapes, b1_bf16_shapes = [], []
     b1_bf16_launches, bf16_vs_f32 = 0, 0.0
-    for (tag, M), (aux, pre, u, pos, plan) in sorted(timed.items()):
+    pre_ms = {}
+    for tag in ("mlp.up", "mlp.down"):
+        aux, gn = timed[(tag, 4)][:2]
+        pre_ms[tag] = cuda_ms(lambda: conv4xbar.blocklast_precompute(aux, gn),
+                              iters=5)
+        print(f"[time] {tag} blocklast_precompute (plain PyTorch, per call of "
+              f"the bf16 mode only; B1 fp32 folds it in): {pre_ms[tag]:.3f} ms "
+              f"[{card}]", flush=True)
+    for (tag, M), (aux, gn, u, pos, plan) in sorted(timed.items()):
         nbytes, gemm, other = unified_work(M, plan.NB, plan.NO, plan.D,
                                            2 * plan.no, 1, 128, None)
         bms, by = bound_ms(nbytes, (gemm + other, FP32_FLOP_S))
-        ms = cuda_ms(lambda: eb.emulator_block_unified_cuda(aux, pre, u, pos),
+        ms = cuda_ms(lambda: eb.emulator_block_unified_cuda(aux, gn, u, pos),
                      iters=10 if M <= 8 else 5)
-        pms = cuda_ms(lambda: eb.emulator_block_unified_plain(aux, pre, u, pos),
+        pms = cuda_ms(lambda: eb.emulator_block_unified_plain(aux, gn, u, pos),
                       iters=3 if M <= 8 else 1, warmup=1)
         b1_shapes.append(dict(shape=f"{tag} K={plan.K} N={plan.N} M={M}", ms=ms,
                               plain_ms=pms, bound_ms=bms, bound_by=by,
                               bytes=nbytes, flops=gemm + other, peak="fp32"))
-        print(f"[time] B1 {tag} M={M}: kernel {ms:.3f} ms, plain {pms:.3f} ms, "
-              f"bound {bms:.3f} ms ({by}: {nbytes / 1e9:.3f} GB, "
-              f"{(gemm + other) / 1e9:.2f} GFLOP at fp32) [{card}]", flush=True)
+        print(f"[time] B1 {tag} M={M}: kernel {ms:.3f} ms (the precompute "
+              f"folded in), plain {pms:.3f} ms, bound {bms:.3f} ms ({by}: "
+              f"{nbytes / 1e9:.3f} GB, {(gemm + other) / 1e9:.2f} GFLOP at "
+              f"fp32) [{card}]", flush=True)
         # the bf16 mode through the dispatcher, as a caller asks for it
+        nbytes, gemm, other = unified_work(M, plan.NB, plan.NO, plan.D,
+                                           2 * plan.no, 1, 128, None,
+                                           fold=False)
         eb.emulator_block_unified_cuda.launches = 0
-        got = emulator_block_unified(aux, pre, u, pos, compute_dtype=BF16)
+        got = emulator_block_unified(aux, gn, u, pos, compute_dtype=BF16)
         torch.cuda.synchronize()
         b1_bf16_launches += eb.emulator_block_unified_cuda.launches
-        want = eb.emulator_block_unified_plain(aux, pre, u, pos,
+        want = eb.emulator_block_unified_plain(aux, gn, u, pos,
                                                compute_dtype=BF16)
         max_abs["B1 bf16"] = max(max_abs["B1 bf16"], compare(
             f"B1 bf16 mode {tag} M={M}", got, want))
-        f32 = eb.emulator_block_unified_cuda(aux, pre, u, pos)
+        f32 = eb.emulator_block_unified_cuda(aux, gn, u, pos)
         d = compare(f"B1 bf16 mode vs fp32 mode {tag} M={M}", got, f32, 0.0,
                     B1_BF16_ATOL)
         bf16_vs_f32 = max(bf16_vs_f32, d)
         del got, want, f32
         bms, by = bound_ms(nbytes, (gemm, BF16_FLOP_S), (other, FP32_FLOP_S))
-        ms = cuda_ms(lambda: emulator_block_unified(aux, pre, u, pos,
-                                                    compute_dtype=BF16),
-                     iters=10 if M <= 8 else 5)
+        call = cuda_ms(lambda: emulator_block_unified(aux, gn, u, pos,
+                                                      compute_dtype=BF16),
+                       iters=10 if M <= 8 else 5)
+        # the kernel's own time: the call less its host-built precompute
+        ms = call - pre_ms[tag]
         pms = cuda_ms(lambda: eb.emulator_block_unified_plain(
-            aux, pre, u, pos, compute_dtype=BF16), iters=3 if M <= 8 else 1,
+            aux, gn, u, pos, compute_dtype=BF16), iters=3 if M <= 8 else 1,
             warmup=1)
         b1_bf16_shapes.append(dict(
             shape=f"{tag} K={plan.K} N={plan.N} M={M} bf16 mode", ms=ms,
-            plain_ms=pms, bound_ms=bms, bound_by=by, bytes=nbytes,
-            flops=gemm + other, peak="GEMM bf16, the rest fp32"))
-        print(f"[time] B1 bf16 mode {tag} M={M}: kernel {ms:.3f} ms, plain "
+            call_ms=call, precompute_ms=pre_ms[tag], plain_ms=pms,
+            bound_ms=bms, bound_by=by, bytes=nbytes, flops=gemm + other,
+            peak="GEMM bf16, the rest fp32"))
+        print(f"[time] B1 bf16 mode {tag} M={M}: call {call:.3f} ms = "
+              f"precompute {pre_ms[tag]:.3f} + kernel {ms:.3f} ms, plain "
               f"{pms:.3f} ms, bound {bms:.3f} ms ({by}: {nbytes / 1e9:.3f} GB; "
               f"{gemm / 1e9:.2f} GFLOP GEMM at bf16, {other / 1e9:.2f} GFLOP "
               f"other at fp32) [{card}]", flush=True)
@@ -557,12 +608,6 @@ def main() -> None:
     if b1_bf16_launches != len(timed):
         fail(f"B1's bf16 mode launched {b1_bf16_launches} times for "
              f"{len(timed)} dispatcher calls")
-    for tag in ("mlp.up", "mlp.down"):
-        aux, _, _, _, plan = timed[(tag, 4)]
-        pre_ms = cuda_ms(lambda: conv4xbar.blocklast_precompute(aux, plan.g_norm),
-                         iters=5)
-        print(f"[time] {tag} blocklast_precompute (per call, plain PyTorch): "
-              f"{pre_ms:.3f} ms [{card}]", flush=True)
     up_plan = timed[("mlp.up", 4)][4]
     down_plan = timed[("mlp.down", 4)][4]
     del timed
@@ -771,6 +816,20 @@ def main() -> None:
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
+
+
+def ptxas_stats(log):
+    """``kernel -> "registers, spills"`` from an ``-Xptxas -v`` log."""
+    import re
+    stats, kernel = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            kernel = m.group(1)
+            continue
+        if kernel and ("registers" in line or "spill" in line):
+            stats[kernel] = (stats.get(kernel, "") + " " + line.split(":", 1)[-1].strip()).strip()
+    return stats
 
 
 def tensor_core_counts(built):

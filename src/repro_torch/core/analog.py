@@ -24,10 +24,11 @@ Every kernel route runs its CUDA kernel for CUDA tensors and its plain
 version for CPU tensors.
 
 What the reference computes per call, this port computes per call too:
-the conductance plan is cached per (tag, weight), the emulator weights'
-repack per params binding, and the per-block precompute
-(``blocklast_precompute``) is rebuilt on every call, as in the
-reference's serving trace.
+the conductance plan is cached per (tag, weight) and the emulator
+weights' repack per params binding; the per-block precompute
+(``blocklast_precompute``) is rebuilt from the plan's ``g_norm`` on every
+call, as in the reference's serving trace -- inside B1's fp32 kernel on
+the card, in plain PyTorch on the CPU and in the bf16 mode.
 
 Not in this slice (each raises ``NotImplementedError`` naming its
 ROADMAP item): non-ideal corners, read noise, remapping and
@@ -351,15 +352,14 @@ class AnalogExecutor:
         x_scale = torch.clamp_min(torch.max(torch.abs(x2d)), 1e-9)
         if self.acfg.backend == "emulator" and self.fast_path:
             aux = self._blocklast_aux(eparams)
-            pre = conv4xbar.blocklast_precompute(aux, plan.g_norm)
             shift = None
             if sfeat is not None and "f0_scen" in aux:
                 shift = sfeat @ aux["f0_scen"]
             u = plan.tile_v(self._drive01(torch.abs(x2d) / x_scale), 1.0)
             pos = plan.tile_v((x2d > 0).float(), 1.0)
-            y2 = emulator_block_unified(aux, pre, u.contiguous(),
-                                        pos.contiguous(), shift=shift)
-            del pre
+            y2 = emulator_block_unified(aux, plan.g_norm.contiguous(),
+                                        u.contiguous(), pos.contiguous(),
+                                        shift=shift)
             return plan.assemble(y2[0]) - plan.assemble(y2[1]), x_scale
         rails = torch.cat([torch.clamp_min(x2d, 0.0),
                            torch.clamp_min(-x2d, 0.0)], dim=0)

@@ -6,10 +6,14 @@ its plain PyTorch version.
   one launch per analog matmul evaluates both rails of every (row,
   crossbar block) pair -- stage-1 window contraction, tail convs,
   W-stage, FC head and the optional fc0 shift
-  (``csrc/emulator_block_unified.cu``).  ``compute_dtype=torch.bfloat16``
-  is the reference kernel's bf16 mode: every GEMM takes bf16-rounded
-  operands and accumulates in float32.  Its plain version is
-  ``conv4xbar.apply_blocklast`` (with ``bf16_dot`` in bf16 mode).
+  (``csrc/emulator_block_unified.cu``).  It takes the plan's ``g_norm``:
+  the fp32 kernel folds the per-plan precompute (``conv4xbar.
+  blocklast_precompute``) in, once per thread block.
+  ``compute_dtype=torch.bfloat16`` is the reference kernel's bf16 mode:
+  every GEMM takes bf16-rounded operands and accumulates in float32; its
+  kernel still reads the precompute, which the wrapper builds.  The plain
+  version is ``blocklast_precompute`` then ``conv4xbar.apply_blocklast``
+  (with ``bf16_dot`` in bf16 mode).
 * ``emulator_block_cuda`` (B2) replaces ``emulator_block_pallas``: the
   paper-faithful network on full (N, 2, D, H, W) features with a
   per-block periph.  Its plain version is ``conv4xbar.apply``.
@@ -52,22 +56,35 @@ _HEAD = (32, 16)
 class _Weights(ctypes.Structure):
     _fields_ = [(n, ctypes.c_void_p) for n in (
         "w0v", "w1k", "w2", "b2", "w3", "b3", "wst", "bst",
-        "f0", "fb0", "f1", "fb1", "f2", "fb2")]
+        "f0", "fb0", "f1", "fb1", "f2", "fb2", "w0g", "b0", "b1")]
 
 
 _LIB: dict = {}
 
 
 def _library():
-    if "fn" not in _LIB:
-        fn = _build.load(SOURCE).emulator_block_unified
-        fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 6
-                       + [ctypes.c_int, ctypes.POINTER(_Weights),
-                          ctypes.c_void_p] + [ctypes.c_int] * 4
-                       + [ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-        _LIB["fn"] = fn
-    return _LIB["fn"]
+    if "unified" not in _LIB:
+        lib = _build.load(SOURCE)
+        tail = ([ctypes.c_int, ctypes.POINTER(_Weights), ctypes.c_void_p]
+                + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+        lib.emulator_block_unified_f32.argtypes = (
+            [ctypes.c_int] + [ctypes.c_void_p] * 4 + tail)
+        lib.emulator_block_unified_bf16.argtypes = (
+            [ctypes.c_int] + [ctypes.c_void_p] * 6 + tail)
+        lib.emulator_block_unified_f32_smem.argtypes = [ctypes.c_int]
+        for f in (lib.emulator_block_unified_f32,
+                  lib.emulator_block_unified_bf16,
+                  lib.emulator_block_unified_f32_smem):
+            f.restype = ctypes.c_int
+        _LIB["unified"] = lib
+    return _LIB["unified"]
+
+
+def unified_smem_bytes(geom: int) -> int:
+    """Dynamic shared memory of one thread block of B1's fp32 kernel for
+    template ``geom`` (0: CASE_A, 1: CASE_B); builds the library if
+    needed."""
+    return int(_library().emulator_block_unified_f32_smem(geom))
 
 
 def _check(name: str, t: torch.Tensor, shape, device) -> None:
@@ -85,38 +102,38 @@ def _check(name: str, t: torch.Tensor, shape, device) -> None:
 
 def default_block_m(M: int) -> int:
     """Fixed row-tile heuristic (the autotuner is ROADMAP A4): one tile
-    covers up to 128 rows, so the precompute is read once per call for
+    covers up to 128 rows, so the fp32 kernel folds each block's
+    precompute once per call (the bf16 mode reads it once per call) for
     decode and prefill batches alike."""
     return min(M, 128)
 
 
-def launch_args(aux: dict, pre: dict, u01: torch.Tensor,
+def launch_args(aux: dict, g_norm: torch.Tensor, u01: torch.Tensor,
                 pos01: torch.Tensor, shift: Optional[torch.Tensor] = None,
                 block_m: Optional[int] = None) -> dict:
     """Validate one call against what the kernel takes and return the
-    launch's scalar arguments and tensors; raises on anything else."""
+    launch's scalar arguments and tensors; raises on anything else.
+    g_norm: (NB, NO, D, H, W), the plan's normalized conductances."""
     dev = u01.device
-    g0k, celu0k, y0 = pre["g0k"], pre["celu0k"], pre["y0"]
-    if g0k.dim() != 7 or u01.dim() != 4:
-        raise ValueError("g0k must be (k1,NB,NO,D,W,G,C0) and u01 (M,NB,D,H)")
-    k1, NB, NO, D, W, G, C0 = g0k.shape
-    M, H = u01.shape[0], u01.shape[3]
+    if g_norm.dim() != 5 or u01.dim() != 4:
+        raise ValueError("g_norm must be (NB,NO,D,H,W) and u01 (M,NB,D,H)")
+    NB, NO, D, H, W = g_norm.shape
+    M = u01.shape[0]
     fcs = aux["fcs"]
     O = fcs[-1][0].shape[1]
     flat = fcs[0][0].shape[0]
     geom = _GEOMS.get((D, W, O, flat))
-    if geom is None or (k1, G, C0, H) != (2, 32, 16, 64):
+    k1, C0, O1 = aux["w1k"].shape
+    if geom is None or (k1, C0, O1, H) != (2, 16, 8, 64):
         raise ValueError(f"unsupported block geometry (D={D}, W={W}, O={O}, "
-                         f"k1={k1}, G={G}, C0={C0}, H={H}, fc0 rows={flat})")
+                         f"k1={k1}, C0={C0}, O1={O1}, H={H}, fc0 rows={flat})")
     if tuple((wk.shape[0], wk.shape[1], k) for wk, _, k in aux["hstages"][1:]) \
             != _TAIL or len(fcs) != 3 \
             or tuple(fw.shape[1] for fw, _ in fcs[:-1]) != _HEAD:
         raise ValueError("unsupported Conv4Xbar head/tail widths")
     _check("u01", u01, (M, NB, D, H), dev)
     _check("pos01", pos01, (M, NB, D, H), dev)
-    _check("g0k", g0k, (k1, NB, NO, D, W, G, C0), dev)
-    _check("celu0k", celu0k, (k1, NB, NO, D, W, G, C0), dev)
-    _check("y0", y0, (NB * NO * D * W * G, 8), dev)
+    _check("g_norm", g_norm, (NB, NO, D, H, W), dev)
     per_block = 0
     if shift is not None:
         if shift.dim() == 2:
@@ -124,17 +141,20 @@ def launch_args(aux: dict, pre: dict, u01: torch.Tensor,
             per_block = 1
         else:
             _check("shift", shift, (_HEAD[0],), dev)
-    (w2, b2, _), (w3, b3, _) = aux["hstages"][1:]
+    (_, b1, _), (w2, b2, _), (w3, b3, _) = aux["hstages"]
     wst, bst, _ = aux["wstage"]
     (f0, fb0), (f1, fb1), (f2, fb2) = fcs
     ws = dict(w0v=aux["w0v"], w1k=aux["w1k"], w2=w2, b2=b2, w3=w3, b3=b3,
               wst=wst, bst=bst, f0=f0, fb0=fb0, f1=f1, fb1=fb1, f2=f2,
-              fb2=fb2)
-    shapes = dict(w0v=(C0,), w1k=(k1, C0, 8), w2=(32, 4), b2=(4,),
+              fb2=fb2, w0g=aux.get("w0g"), b0=aux.get("b0"), b1=b1)
+    shapes = dict(w0v=(C0,), w1k=(k1, C0, O1), w2=(32, 4), b2=(4,),
                   w3=(32, 32), b3=(32,), wst=(64, 32), bst=(32,),
                   f0=(flat, 32), fb0=(32,), f1=(32, 16), fb1=(16,),
-                  f2=(16, O), fb2=(O,))
+                  f2=(16, O), fb2=(O,), w0g=(C0,), b0=(C0,), b1=(O1,))
     for name, t in ws.items():
+        if t is None:
+            raise ValueError(f"aux has no {name} (stage 0's weights come "
+                             "from conv4xbar.blocklast_weights)")
         _check(name, t, shapes[name], dev)
     if NB * NO >= 2 ** 31:
         raise ValueError(f"{NB * NO} blocks exceed the grid's x dimension")
@@ -155,31 +175,41 @@ def _mode(compute_dtype) -> int:
     return _MODES[compute_dtype]
 
 
-def emulator_block_unified_cuda(aux: dict, pre: dict, u01: torch.Tensor,
-                                pos01: torch.Tensor, *,
+def emulator_block_unified_cuda(aux: dict, g_norm: torch.Tensor,
+                                u01: torch.Tensor, pos01: torch.Tensor, *,
                                 shift: Optional[torch.Tensor] = None,
                                 block_m: Optional[int] = None,
                                 compute_dtype=torch.float32) -> torch.Tensor:
     """Launch the unified kernel on CUDA tensors; raises on anything it
     does not take.  Same contract as ``emulator_block_unified_plain``:
-    returns (2, M*NB*NO, O) float32."""
+    returns (2, M*NB*NO, O) float32.  The fp32 mode folds the per-plan
+    precompute into the kernel; the bf16 mode builds it here (plain
+    PyTorch) and its kernel reads it."""
     mode = _mode(compute_dtype)
     if u01.device.type != "cuda":
         raise ValueError("emulator_block_unified_cuda takes CUDA tensors "
                          f"(got {u01.device}); CPU tensors go to the plain "
                          "version")
-    a = launch_args(aux, pre, u01, pos01, shift, block_m)
+    a = launch_args(aux, g_norm, u01, pos01, shift, block_m)
     M, NB, NO = a["M"], a["NB"], a["NO"]
     out = torch.empty((2, M * NB * NO, a["O"]), dtype=torch.float32,
                       device=u01.device)
     wt = _Weights(**{k: v.data_ptr() for k, v in a["weights"].items()})
-    fn = _library()
+    lib = _library()
     stream = torch.cuda.current_stream(u01.device).cuda_stream
-    err = fn(a["geom"], mode, u01.data_ptr(), pos01.data_ptr(),
-             pre["g0k"].data_ptr(), pre["celu0k"].data_ptr(),
-             pre["y0"].data_ptr(), 0 if shift is None else shift.data_ptr(),
-             a["per_block"], ctypes.byref(wt), out.data_ptr(), M, NB, NO,
-             a["bm"], stream)
+    sh = 0 if shift is None else shift.data_ptr()
+    tail = (sh, a["per_block"], ctypes.byref(wt), out.data_ptr(), M, NB, NO,
+            a["bm"], stream)
+    if mode:
+        pre = conv4xbar.blocklast_precompute(aux, g_norm)
+        err = lib.emulator_block_unified_bf16(
+            a["geom"], u01.data_ptr(), pos01.data_ptr(),
+            pre["g0k"].data_ptr(), pre["celu0k"].data_ptr(),
+            pre["y0"].data_ptr(), *tail)
+    else:
+        err = lib.emulator_block_unified_f32(
+            a["geom"], u01.data_ptr(), pos01.data_ptr(), g_norm.data_ptr(),
+            *tail)
     _build.launched(err, "emulator_block_unified")
     emulator_block_unified_cuda.launches += 1
     return out
@@ -203,15 +233,17 @@ def bf16_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return acc
 
 
-def emulator_block_unified_plain(aux: dict, pre: dict, u01: torch.Tensor,
-                                 pos01: torch.Tensor, *,
+def emulator_block_unified_plain(aux: dict, g_norm: torch.Tensor,
+                                 u01: torch.Tensor, pos01: torch.Tensor, *,
                                  shift: Optional[torch.Tensor] = None,
                                  chunk: int = 2,
                                  compute_dtype=torch.float32) -> torch.Tensor:
-    """The kernel's function in plain PyTorch: the chunked
+    """The kernel's function in plain PyTorch: ``conv4xbar.
+    blocklast_precompute`` on ``g_norm``, then the chunked
     ``conv4xbar.apply_blocklast``, its GEMMs through ``bf16_dot`` in bf16
     mode.  Returns (2, M*NB*NO, O) float32."""
     dot = bf16_dot if _mode(compute_dtype) else None
+    pre = conv4xbar.blocklast_precompute(aux, g_norm)
     return apply_blocklast(aux, pre, u01, pos01, chunk=chunk,
                            fc0_shift=shift, dot=dot)
 

@@ -46,23 +46,27 @@ def emulator_block_grid(params: dict, v01: torch.Tensor, g_norm: torch.Tensor,
     return emulator_block_grid_plain(params, v01, g_norm, geom)
 
 
-def emulator_block_unified(aux: dict, pre: dict, u01: torch.Tensor,
-                           pos01: torch.Tensor, *,
+def emulator_block_unified(aux: dict, g_norm: torch.Tensor,
+                           u01: torch.Tensor, pos01: torch.Tensor, *,
                            shift: Optional[torch.Tensor] = None,
                            chunk: Optional[int] = None,
                            compute_dtype=torch.float32) -> torch.Tensor:
     """Both rails of every (row, crossbar block) pair, every corner (B1).
 
-    ``shift`` is the fc0 epilogue (``sfeat @ aux["f0_scen"]``; None at the
-    ideal corner of a plain net); ``chunk`` is the plain version's row
-    chunk.  ``compute_dtype=torch.bfloat16`` is the reference kernel's
-    bf16 mode (bf16 GEMM operands, float32 accumulation), on the card and
-    on the CPU alike; the reference dispatcher's XLA route ignores
+    ``g_norm`` is the plan's (NB, NO, D, H, W) normalized conductances;
+    the per-plan precompute is built from it inside the kernel (fp32) or
+    the call (bf16 mode, CPU).  ``shift`` is the fc0 epilogue
+    (``sfeat @ aux["f0_scen"]``; None at the ideal corner of a plain
+    net); ``chunk`` is the plain version's row chunk.
+    ``compute_dtype=torch.bfloat16`` is the reference kernel's bf16 mode
+    (bf16 GEMM operands, float32 accumulation), on the card and on the
+    CPU alike; the reference dispatcher's XLA route ignores
     ``compute_dtype``, this one does not.  Returns (2, M*NB*NO, O)
     float32."""
     if _on_cuda(u01):
-        return emulator_block_unified_cuda(aux, pre, u01, pos01, shift=shift,
+        return emulator_block_unified_cuda(aux, g_norm, u01, pos01,
+                                           shift=shift,
                                            compute_dtype=compute_dtype)
-    return emulator_block_unified_plain(aux, pre, u01, pos01, shift=shift,
+    return emulator_block_unified_plain(aux, g_norm, u01, pos01, shift=shift,
                                         chunk=2 if chunk is None else chunk,
                                         compute_dtype=compute_dtype)

@@ -26,17 +26,17 @@ from __future__ import annotations
 import argparse
 import contextlib
 import time
-import zlib
 from typing import Dict, List, Optional
 
 import torch
 
 from repro_torch import DeviceLike, resolve_device
+from repro_torch.models.common import fold_seed
 
 
 def _derived_seed(seed: int, purpose: str) -> int:
     """Independent seed per stochastic purpose (init, prompt, sampling)."""
-    return (int(seed) << 32) ^ zlib.crc32(purpose.encode())
+    return fold_seed(seed, purpose)
 
 
 def _sync(device: torch.device) -> None:

@@ -53,10 +53,17 @@ def key_path(path: Tuple[str, ...]) -> str:
     return "".join(f"[{k!r}]" for k in path)
 
 
+def fold_seed(seed: int, tag: str) -> int:
+    """A 32-bit generator seed from ``seed`` and a path or purpose: the
+    crc32 of both.  Every device's generator keeps all of it (the CPU's
+    mt19937 keeps only the low 32 bits of a wider seed)."""
+    return zlib.crc32(f"{int(seed)}:{tag}".encode())
+
+
 def init_params(seed: int, schema, dtype=torch.float32,
                 device: DeviceLike = None):
     """Materialize a schema: one generator per leaf, seeded by
-    ``(seed, crc32(key path))``; draws are float32, cast to ``dtype``."""
+    ``fold_seed(seed, key path)``; draws are float32, cast to ``dtype``."""
     dev = resolve_device(device)
 
     def init_one(path, p: ParamSchema):
@@ -65,9 +72,8 @@ def init_params(seed: int, schema, dtype=torch.float32,
             return torch.zeros(p.shape, dtype=dt, device=dev)
         if p.init == "ones":
             return torch.ones(p.shape, dtype=dt, device=dev)
-        crc = zlib.crc32(key_path(path).encode()) & 0x7FFFFFFF
         g = torch.Generator(device=dev)
-        g.manual_seed((int(seed) << 31) ^ crc)
+        g.manual_seed(fold_seed(seed, key_path(path)))
         x = torch.randn(p.shape, generator=g, dtype=torch.float32, device=dev)
         return (x * p.scale).to(dt)
 

@@ -1,6 +1,7 @@
-"""The unified emulator dispatcher on CPU tensors against the reference
-dispatcher's plain route (``use_pallas=False``, that is
-``apply_blocklast``), at rtol 2e-5 / atol 2e-6; and the kernel module's
+"""The unified emulator dispatcher on CPU tensors, given the plan's
+``g_norm``, against the reference dispatcher's plain route
+(``use_pallas=False``, that is ``apply_blocklast``) given the reference's
+own ``blocklast_precompute``, at rtol 2e-5 / atol 2e-6; and the kernel module's
 CPU-side contract (imports without nvcc, refuses CPU tensors, counts no
 launch on the CPU).  The kernel itself runs on the card, where
 ``chip_smoke.py`` holds it against the plain version."""
@@ -39,17 +40,17 @@ def _setup(g, npf, NB, NO, M, seed=0):
     u = np.where(u < 0.2, 0.0, u).astype(np.float32)
     pos = ((rng.uniform(size=u.shape) < 0.5) & (u > 0)).astype(np.float32)
     rpre = rconv.blocklast_precompute(ra, jnp.asarray(gn))
-    tpre = conv4xbar.blocklast_precompute(ta, torch.from_numpy(gn))
     return (ra, rpre, jnp.asarray(u), jnp.asarray(pos)), \
-        (ta, tpre, torch.from_numpy(u), torch.from_numpy(pos))
+        (ta, torch.from_numpy(gn), torch.from_numpy(u), torch.from_numpy(pos))
 
 
 @pytest.mark.parametrize("g,npf,NB,NO,M,shift", [
     ("A", 0, 2, 3, 5, None), ("B", 0, 2, 2, 3, None),
-    ("A", 15, 2, 2, 3, "flat"), ("B", 15, 3, 2, 4, "block")])
+    ("A", 15, 2, 2, 3, "flat"), ("B", 15, 3, 2, 4, "block"),
+    ("A", 15, 1, 3, 7, "block"), ("B", 15, 2, 1, 9, "flat")])
 def test_dispatcher_cpu_matches_reference(g, npf, NB, NO, M, shift):
     eb.emulator_block_unified_cuda.launches = 0
-    (ra, rpre, ru, rp), (ta, tpre, tu, tp) = _setup(g, npf, NB, NO, M)
+    (ra, rpre, ru, rp), (ta, tgn, tu, tp) = _setup(g, npf, NB, NO, M)
     sh = None
     if shift:
         f = ta["fcs"][0][0].shape[1]
@@ -57,7 +58,7 @@ def test_dispatcher_cpu_matches_reference(g, npf, NB, NO, M, shift):
         sh = (0.2 * np.random.default_rng(9).standard_normal(shp)).astype(np.float32)
     want = ref_unified(ra, rpre, ru, rp, use_pallas=False, tune=False,
                        shift=None if sh is None else jnp.asarray(sh))
-    got = emulator_block_unified(ta, tpre, tu, tp,
+    got = emulator_block_unified(ta, tgn, tu, tp,
                                  shift=None if sh is None else torch.from_numpy(sh))
     assert_close(got, want, 2e-5, 2e-6)
     # on the CPU the wrapper takes the plain version; the kernel never runs
@@ -76,7 +77,7 @@ def test_dispatcher_cpu_matches_reference(g, npf, NB, NO, M, shift):
     ("A", 15, 2, 2, 3, "flat")])
 def test_bf16_mode_matches_reference_kernel(g, npf, NB, NO, M, shift):
     eb.emulator_block_unified_cuda.launches = 0
-    (ra, rpre, ru, rp), (ta, tpre, tu, tp) = _setup(g, npf, NB, NO, M)
+    (ra, rpre, ru, rp), (ta, tgn, tu, tp) = _setup(g, npf, NB, NO, M)
     sh = None
     if shift:
         f = ta["fcs"][0][0].shape[1]
@@ -85,12 +86,12 @@ def test_bf16_mode_matches_reference_kernel(g, npf, NB, NO, M, shift):
                        tune=False, compute_dtype=jnp.bfloat16,
                        shift=None if sh is None else jnp.asarray(sh))
     tsh = None if sh is None else torch.from_numpy(sh)
-    got = emulator_block_unified(ta, tpre, tu, tp, shift=tsh,
+    got = emulator_block_unified(ta, tgn, tu, tp, shift=tsh,
                                  compute_dtype=torch.bfloat16)
     assert eb.emulator_block_unified_cuda.launches == 0
     assert got.dtype == torch.float32
     assert_close(got, want, 0.0, 1e-2, "vs the reference kernel's bf16 mode")
-    f32 = emulator_block_unified(ta, tpre, tu, tp, shift=tsh)
+    f32 = emulator_block_unified(ta, tgn, tu, tp, shift=tsh)
     assert_close(got, f32, 0.0, 5e-2, "bf16 mode vs float32 mode")
     assert not torch.equal(got, f32)
 
@@ -106,15 +107,15 @@ def test_bf16_dot_rounds_both_operands():
 
 
 def test_compute_dtype_is_float32_or_bf16():
-    _, (ta, tpre, tu, tp) = _setup("A", 0, 1, 2, 2)
+    _, (ta, tgn, tu, tp) = _setup("A", 0, 1, 2, 2)
     for fn in (emulator_block_unified, eb.emulator_block_unified_cuda):
         with pytest.raises(TypeError, match="compute_dtype"):
-            fn(ta, tpre, tu, tp, compute_dtype=torch.float16)
+            fn(ta, tgn, tu, tp, compute_dtype=torch.float16)
 
 
 def test_chunk_choice_is_neutral():
-    _, (ta, tpre, tu, tp) = _setup("A", 0, 2, 2, 7)
-    outs = [emulator_block_unified(ta, tpre, tu, tp, chunk=c) for c in (1, 2, 3, 7)]
+    _, (ta, tgn, tu, tp) = _setup("A", 0, 2, 2, 7)
+    outs = [emulator_block_unified(ta, tgn, tu, tp, chunk=c) for c in (1, 2, 3, 7)]
     for o in outs[1:]:
         assert_close(o, outs[0], 2e-6, 1e-7)
 
@@ -132,35 +133,36 @@ def test_kernel_module_imports_without_nvcc():
 
 
 def test_cuda_entry_refuses_cpu_tensors():
-    _, (ta, tpre, tu, tp) = _setup("A", 0, 1, 2, 2)
+    _, (ta, tgn, tu, tp) = _setup("A", 0, 1, 2, 2)
     eb.emulator_block_unified_cuda.launches = 0
     with pytest.raises(ValueError, match="CUDA tensors"):
-        eb.emulator_block_unified_cuda(ta, tpre, tu, tp)
+        eb.emulator_block_unified_cuda(ta, tgn, tu, tp)
     assert eb.emulator_block_unified_cuda.launches == 0
 
 
 def test_plain_version_is_apply_blocklast():
-    _, (ta, tpre, tu, tp) = _setup("B", 0, 2, 2, 3)
-    a = eb.emulator_block_unified_plain(ta, tpre, tu, tp, chunk=2)
-    b = conv4xbar.apply_blocklast(ta, tpre, tu, tp, chunk=2)
+    _, (ta, tgn, tu, tp) = _setup("B", 0, 2, 2, 3)
+    a = eb.emulator_block_unified_plain(ta, tgn, tu, tp, chunk=2)
+    pre = conv4xbar.blocklast_precompute(ta, tgn)
+    b = conv4xbar.apply_blocklast(ta, pre, tu, tp, chunk=2)
     assert torch.equal(a, b)
 
 
 def test_dispatcher_module_reload_is_side_effect_free():
     mod = importlib.import_module("repro_torch.kernels.emulator_block.emulator_block")
-    assert "fn" not in mod._LIB          # nothing built or loaded on import
+    assert "unified" not in mod._LIB     # nothing built or loaded on import
 
 
 @pytest.mark.parametrize("g,npf,shift", [("A", 0, None), ("B", 0, None),
                                          ("A", 15, "flat"), ("B", 15, "block")])
 def test_launch_args_accept_serving_shapes(g, npf, shift):
-    _, (ta, tpre, tu, tp) = _setup(g, npf, 2, 3, 5)
+    _, (ta, tgn, tu, tp) = _setup(g, npf, 2, 3, 5)
     sh = None
     if shift == "flat":
         sh = torch.zeros(32)
     elif shift == "block":
         sh = torch.zeros(6, 32)
-    a = eb.launch_args(ta, tpre, tu, tp, sh, 2)
+    a = eb.launch_args(ta, tgn, tu, tp, sh, 2)
     assert (a["geom"], a["M"], a["NB"], a["NO"], a["bm"]) == \
         ({"A": 0, "B": 1}[g], 5, 2, 3, 2)
     assert a["per_block"] == (shift == "block")
@@ -168,17 +170,38 @@ def test_launch_args_accept_serving_shapes(g, npf, shift):
 
 
 def test_launch_args_refuse_what_the_kernel_does_not_take():
-    _, (ta, tpre, tu, tp) = _setup("A", 0, 2, 3, 5)
+    _, (ta, tgn, tu, tp) = _setup("A", 0, 2, 3, 5)
     with pytest.raises(TypeError, match="float32"):
-        eb.launch_args(ta, tpre, tu.double(), tp)
+        eb.launch_args(ta, tgn, tu.double(), tp)
     with pytest.raises(ValueError, match="contiguous"):
-        eb.launch_args(ta, tpre, tu.transpose(2, 3).contiguous().transpose(2, 3), tp)
+        eb.launch_args(ta, tgn, tu.transpose(2, 3).contiguous().transpose(2, 3), tp)
     with pytest.raises(ValueError, match="shape"):
-        eb.launch_args(ta, tpre, tu[:, :1], tp)
+        eb.launch_args(ta, tgn, tu[:, :1], tp)
     with pytest.raises(ValueError, match="shape"):
-        eb.launch_args(ta, tpre, tu, tp, torch.zeros(5, 32))
+        eb.launch_args(ta, tgn, tu, tp, torch.zeros(5, 32))
     with pytest.raises(ValueError, match="grid"):
-        eb.launch_args(ta, tpre, tu, tp, None, 0)
+        eb.launch_args(ta, tgn, tu, tp, None, 0)
+
+
+@pytest.mark.parametrize("bad", ["g_norm rank", "g_norm blocks", "g_norm H",
+                                 "w0g", "b0", "w0g shape"])
+def test_launch_args_refuse_a_wrong_g_norm_or_stage0_weight(bad):
+    """The fp32 kernel folds the precompute from ``g_norm`` and stage 0's
+    weights, so ``launch_args`` holds both to the kernel's shapes."""
+    _, (ta, tgn, tu, tp) = _setup("A", 0, 2, 3, 5)
+    ta = dict(ta)
+    if bad == "g_norm rank":
+        tgn = tgn.reshape(6, 4, 64, 2)
+    elif bad == "g_norm blocks":
+        tgn = tgn[:1].contiguous()
+    elif bad == "g_norm H":
+        tgn = tgn[:, :, :, :32].contiguous()
+    elif bad == "w0g shape":
+        ta["w0g"] = ta["w0g"][:8]
+    else:
+        del ta[bad]
+    with pytest.raises(ValueError, match="g_norm|shape|geometry|aux has no"):
+        eb.launch_args(ta, tgn, tu, tp)
 
 
 # --------------------------------------------------------------------------- #
@@ -312,3 +335,29 @@ def test_pack_net_weights_refuses_other_nets():
         eb.pack_net_weights(bad, CASE_A)
     with pytest.raises(ValueError, match="geometry"):
         eb.pack_net_weights(tp, CASE_A.__class__("x", 2, 4, 32, 2, 1))
+
+
+# B1's fp32 kernel takes every CELU as exp(x) - 1 from the hardware exp2
+# (``celu_ex2``: x * log2(e) rounded to float32, then 2^t, less 1) where the
+# plain version takes expm1.  Emulated here with float32 torch ops: the
+# plain version with that CELU stays within the card's gate (rtol 1e-4 /
+# atol 1e-5, chip_smoke.py phase 2) of the plain version itself.
+@pytest.mark.parametrize("g,npf,NB,NO,M,shift", [
+    ("A", 0, 2, 3, 5, None), ("B", 15, 2, 2, 3, "block")])
+def test_exp2_celu_of_the_fp32_kernel_holds_the_card_gate(g, npf, NB, NO, M,
+                                                          shift, monkeypatch):
+    _, (ta, tgn, tu, tp) = _setup(g, npf, NB, NO, M)
+    sh = None
+    if shift:
+        sh = torch.from_numpy((0.2 * np.random.default_rng(9).standard_normal(
+            (NB * NO, 32))).astype(np.float32))
+    want = eb.emulator_block_unified_plain(ta, tgn, tu, tp, shift=sh)
+    log2e = torch.tensor(1.4426950408889634, dtype=torch.float32)
+
+    def celu_ex2(x):
+        return torch.where(x > 0, x, torch.exp2(x * log2e) - 1.0)
+
+    monkeypatch.setattr(conv4xbar, "celu", celu_ex2)
+    got = eb.emulator_block_unified_plain(ta, tgn, tu, tp, shift=sh)
+    assert not torch.equal(got, want)
+    assert_close(got, want, 1e-4, 1e-5, "exp2 CELU vs expm1 CELU")
