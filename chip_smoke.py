@@ -10,15 +10,17 @@ JAX or of the JAX package.  Phases (any failure exits non-zero):
   1. build every kernel from ``src/repro_torch`` (one nvcc per source, in
      parallel): B1 (unified evaluator), B2 (per-block network), B3 (grid
      network), B4 (crossbar MAC), B5 (flash attention), B6 (linear scan);
-     ptxas registers / shared memory / spills (and B1's fp32 template's
-     on their own line); the tensor-core instructions (HMMA, HGMMA) in
-     each library's SASS, which B4 and B5 must have
+     ptxas registers / shared memory / spills (B1's fp32 template's and
+     B3's kernel's per geometry on lines of their own, beside their
+     dynamic shared memory); the tensor-core instructions (HMMA, HGMMA)
+     in each library's SASS, which B4 and B5 must have
   2. the emulator kernels against their plain PyTorch versions on the
      card, fp32 with TF32 off, at small shapes (ragged tiles, CASE_A and
      CASE_B, plain and conditioned periph widths; B1 in both modes, given
      the plan's g_norm, which its fp32 kernel folds into the per-plan
-     precompute itself) and at the full-width gemma3-1b MLP shapes;
-     outputs compared at rtol 1e-4 / atol 1e-5
+     precompute itself; B3 with passes of rows cut short: M = R + 1 and
+     one row a tile) and at the full-width gemma3-1b MLP shapes; outputs
+     compared at rtol 1e-4 / atol 1e-5
   3. the emulator lifecycle at the paper's sizes through the port's
      quickstart: label the Table 1 dataset (50,000 + 5,000 CASE_A blocks)
      with the circuit solver, train a Conv4Xbar on it (B2 evaluates the
@@ -39,7 +41,8 @@ JAX or of the JAX package.  Phases (any failure exits non-zero):
      512 x 32, calibrated) per backend (circuit, analytic, emulator slow
      path = B3, emulator fast path = B1); full-width ``mlp.up`` through
      B3 against B1 at rtol 2e-4 / atol 1e-5; a conditioned net given
-     scenario features through B2; B2 and B3 times
+     scenario features through B2; B2 and B3 times, each B3 time with
+     its share of the bound
   7. the kernels' own entry points, each launched through its ``ops``
      function at full model widths and at a ragged shape, fp32 and bf16:
      B4 ``xbar_mac`` (gemma3-1b's ``mlp.up``/``mlp.down`` as one crossbar
@@ -78,6 +81,18 @@ GEMMA = dict(d_model=1152, d_ff=6912)
 # (about 80 s on an H100 with the labelling; the paper trains 2,000
 # epochs, see PERF.md)
 TRAIN = dict(n_train=50_000, n_test=5_000, epochs=50, lr_halve_at=(31, 44))
+# B3's phase-2 cases: (label, geometry name, P, M, NB, NO, block_m); R =
+# D*W rows a pass (8 under CASE_A, 16 under CASE_B), so M = R + 1 ends on a
+# pass of one row, and block_m = 1 gives every tile a single row
+B3_CASES = [
+    ("A P=2 M%bm", "A", 2, 5, 3, 7, 2), ("A no periph", "A", 0, 3, 2, 4, None),
+    ("B P=15 M%bm", "B", 15, 5, 2, 5, 3), ("B P=2", "B", 2, 130, 1, 3, None),
+    ("A P=0 M=R+1", "A", 0, 9, 2, 3, None), ("B P=2 M=R+1", "B", 2, 17, 2, 2, None),
+    ("A P=15 M=13 bm=1", "A", 15, 13, 2, 2, 1),
+    ("B P=0 M=13 bm=1", "B", 0, 13, 1, 3, 1)]
+# B3's kernel per geometry, as ptxas names its template instances
+B3_TEMPLATES = {"CASE_A": "grid_warp_kernelILi4ELi2ELi1E",
+                "CASE_B": "grid_warp_kernelILi2ELi8ELi4E"}
 
 
 def fail(msg: str) -> None:
@@ -312,9 +327,16 @@ def main() -> None:
     for gid, geom in enumerate((CASE_A, CASE_B)):
         print(f"[build] B1 fp32 dynamic shared memory {geom.name}: "
               f"{eb.unified_smem_bytes(gid)} B", flush=True)
+    b3_src = next(src for src in built if src.name == "emulator_block.cu")
+    b3_stats = ptxas_stats(built[b3_src][1])
+    for name, geom in (("CASE_A", CASE_A), ("CASE_B", CASE_B)):
+        stats = [v for k, v in b3_stats.items() if B3_TEMPLATES[name] in k]
+        print(f"[build] B3 grid_warp_kernel {name}: "
+              f"{stats[0] if stats else 'no ptxas output (library cached)'}; "
+              f"dynamic shared memory {eb.grid_smem_bytes(geom)} B", flush=True)
     for geom in (CASE_A, CASE_B):
         for P in (0, 2, 15):
-            print(f"[build] B2/B3 dynamic shared memory {geom.name} P={P}: "
+            print(f"[build] B2 dynamic shared memory {geom.name} P={P}: "
                   f"{eb.block_smem_bytes(geom, P)} B", flush=True)
     tensor_core_counts(built)
     fa = importlib.import_module("repro_torch.kernels.flash_attention.flash_attention")
@@ -417,10 +439,8 @@ def main() -> None:
         want = eb.emulator_block_plain(p, x, per)
         max_abs["B2"] = max(max_abs["B2"], compare(f"B2 {label}", got, want))
         del x, got, want
-    b3_cases = [  # (label, geom, P, M, NB, NO, block_m)
-        ("A P=2 M%bm", CASE_A, 2, 5, 3, 7, 2), ("A no periph", CASE_A, 0, 3, 2, 4, None),
-        ("B P=15 M%bm", CASE_B, 15, 5, 2, 5, 3), ("B P=2", CASE_B, 2, 130, 1, 3, None)]
-    for label, geom, P, M, NB, NO, bm in b3_cases:
+    for label, gname, P, M, NB, NO, bm in B3_CASES:
+        geom = {"A": CASE_A, "B": CASE_B}[gname]
         p = rand_params(geom, P, 30 + P)
         v = torch.rand((M, NB, geom.tiles, geom.rows), generator=gen, device=dev)
         gn = torch.rand((NB * NO,) + geom.chw[1:], generator=gen, device=dev)
@@ -770,7 +790,7 @@ def main() -> None:
             nbytes, flops = grid_work(CASE_A, rows, plan.NB, plan.NO, 2)
             bms, by = bound_ms(nbytes, (flops, FP32_FLOP_S))
             ms = cuda_ms(lambda: eb.emulator_block_grid_cuda(trained, v, gn, CASE_A),
-                         iters=5 if M <= 8 else 2, warmup=1)
+                         iters=5 if M <= 8 else 3, warmup=1)
             pms = None
             if M <= 8:
                 pms = cuda_ms(lambda: eb.emulator_block_grid_plain(
@@ -778,11 +798,12 @@ def main() -> None:
             b3_shapes.append(dict(shape=f"{tag} K={plan.K} N={plan.N} M={M} "
                                   f"({rows} rail rows)", ms=ms, plain_ms=pms,
                                   bound_ms=bms, bound_by=by, bytes=nbytes,
-                                  flops=flops))
+                                  flops=flops, bound_share=bms / ms))
             print(f"[time] B3 {tag} M={M} ({rows} rail rows): kernel {ms:.3f} ms, "
                   f"plain {'not timed' if pms is None else f'{pms:.3f} ms'}, "
                   f"bound {bms:.3f} ms ({by}: {nbytes / 1e6:.1f} MB, "
-                  f"{flops / 1e9:.1f} GFLOP) [{card}]", flush=True)
+                  f"{flops / 1e9:.1f} GFLOP), {100 * bms / ms:.1f}% of the "
+                  f"bound [{card}]", flush=True)
     torch.cuda.empty_cache()
 
     # ---- phase 7: the kernels' own entry points ---------------------------

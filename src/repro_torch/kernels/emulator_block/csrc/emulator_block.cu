@@ -1,15 +1,15 @@
 // Paper-faithful per-block Conv4Xbar evaluators for Hopper (sm_90a), fp32.
 //
-// Two kernels over one network, written once (stage01 + tail below):
+// Two kernels over one network:
 //   block_kernel (B2) replaces kernels/emulator_block/emulator_block.py:
 //     emulator_block_pallas of the JAX package (body _kernel, stages
 //     _stage_apply): x (N, 2, D, H, W) normalized (V, G) features and a
-//     per-block periph (N, P) -> (N, O).
-//   grid_kernel (B3) replaces emulator_block_grid_pallas (body _grid_kernel):
-//     the same network per (row m, crossbar block j) with the (V, G) stack
-//     built on chip from the row's drive v01 (M, NB, D, H) and the block's
-//     shared conductances g_norm (NB*NO, D, H, W), periph (1, 0, ...) of
-//     length P -> (M, NB*NO, O).
+//     per-block periph (N, P) -> (N, O).  Written with stage01 + tail.
+//   grid_warp_kernel (B3) replaces emulator_block_grid_pallas (body
+//     _grid_kernel): the same network per (row m, crossbar block j) with
+//     the (V, G) stack built on chip from the row's drive v01 (M, NB, D, H)
+//     and the block's shared conductances g_norm (NB*NO, D, H, W), periph
+//     (1, 0, ...) -> (M, NB*NO, O).  Its own design, below.
 //
 // The network (core/conv4xbar.py:build_stages; H = 64):
 //   stage 0   2 -> 16, 1x1x1              CELU
@@ -21,23 +21,47 @@
 // CELU is max(0,x) + min(0, expm1(x)).  Geometries: CASE_A (D, W, O) =
 // (4, 2, 1), FLAT 128; CASE_B (2, 8, 4), FLAT 256.
 //
-// What bounds it on an H100: about 230 kFLOP and 10.9k expm1 per block
+// What bounds both on an H100: about 230 kFLOP and 10.9k expm1 per block
 // evaluation under CASE_A (twice that under CASE_B) against 4 KiB of
 // features read (B2), or 2 KiB of drive per row and 2 KiB of shared
 // conductances per block (B3): both kernels are bound by operations.
 //
-// What the design does about it: one thread per stage-1 position
-// (d, w, g) -- D*W*32 threads -- computes its two stage-0 rows and their
-// stage-1 contraction in registers, so the 16-channel stage-0 activations
-// never leave registers; the tail's activations and every weight (fc0's
-// FLAT+P rows included) sit in dynamic shared memory, loaded once per
-// thread block and reused by every evaluation it makes.  B2 walks a tile
-// of crossbar blocks per thread block; B3 takes one crossbar block per
-// thread block (gridDim.x: 34,560 blocks do not fit in y) and a tile of up
-// to 128 rows (gridDim.y), holding the block's stage-0 conductance term in
-// registers across the rows.  All arithmetic is scalar fp32 FMA on CUDA
-// cores: TF32 would break fp32 parity.  This is the simple first version:
-// the tail runs one evaluation at a time.
+// B2's design: one thread per stage-1 position (d, w, g) -- D*W*32
+// threads -- computes its two stage-0 rows and their stage-1 contraction
+// in registers; the tail's activations and every weight (fc0's FLAT+P rows
+// included) sit in dynamic shared memory, loaded once per thread block; a
+// thread block walks a tile of crossbar blocks, the tail one evaluation at
+// a time with a barrier between its stages.  All arithmetic is scalar fp32
+// FMA on CUDA cores: TF32 would break fp32 parity.
+//
+// B3's design (grid_warp_kernel), the pattern of the fast path's fp32
+// kernel (emulator_block_unified.cu, fused_kernel) on the full network:
+//   * one thread block per (crossbar block, tile of rows); one thread per
+//     stage-1 position, warp = column (d, w), lane = g.  The fold: each
+//     thread computes its stage-0 conductance terms g0 = g*w0g + b0 (2 x
+//     16) into registers once and reuses them for every row of the tile;
+//   * the periph is folded on the host: the slow path's periph is the
+//     constant (1, 0, ...), so fc0's row FLAT is added to fc0's bias once
+//     per call (pack_grid_weights) and no periph row is held or read;
+//   * stage 0+1 takes S1ROWS rows a pass, so each float4 of the stage-1
+//     weights read from shared memory serves that many rows;
+//   * warp-local tail: stage 2 (window 4 over g) is a 4-lane
+//     reduce-scatter with shuffles that leaves lane g with stage 3's input
+//     element g in a per-warp stash; stage 3 (window 8 = the whole column)
+//     is a 32 x 32 product per warp over R = D*W rows at once, lane =
+//     output channel; then ONE __syncthreads per R rows hands the stage-3
+//     columns (double-buffered) to the head, where each warp takes one row
+//     and runs the W-stage, fc0 (four partial chains), fc1 and fc2 with
+//     only __syncwarp between them (seven barriers per row before);
+//   * every CELU is exp(x) - 1 from the hardware exp2 (celu_ex2), where
+//     expm1f is a software routine of about twenty instructions; all
+//     arithmetic stays fp32 FMA on CUDA cores;
+//   * the weights sit in shared memory in the order pack_grid_weights
+//     packs them, every array on a 16-byte boundary, copied as float4:
+//     63 KB a block under CASE_A (256 threads, two blocks per SM), 167 KB
+//     under CASE_B (512 threads, one block per SM).
+// The sums run in another order than the plain version's convolutions and
+// the CELU is exp(x) - 1, which move results by a few fp32 roundings.
 #include <cuda_runtime.h>
 
 namespace {
@@ -232,43 +256,6 @@ block_kernel(const float* __restrict__ x, const float* __restrict__ periph,
   }
 }
 
-// B3: thread block (j, i) evaluates block j for rows [i*bm, min(M, (i+1)*bm)).
-template <int D, int W, int O>
-__global__ void __launch_bounds__(D * W * G)
-grid_kernel(const float* __restrict__ v01, const float* __restrict__ gnorm,
-            const float* __restrict__ wpack, int P, float* __restrict__ out,
-            int M, int NB, int NO, int bm) {
-  using Nt = Net<D, W, O>;
-  extern __shared__ float smem[];
-  const Act a = load<D, W, O>(smem, wpack, P);
-  const int tid = threadIdx.x;
-  const int g = tid % G, w = (tid / G) % W, d = tid / (W * G);
-  const long long j = blockIdx.x;             // crossbar block nb*NO + no
-  const long long nblk = (long long)NB * NO;
-  const long long nb = j / NO;
-  const int m0 = blockIdx.y * bm;
-  const int m1 = min(M, m0 + bm);
-  for (int i = tid; i < P; i += Nt::NT) a.h4[Nt::FLAT + i] = i == 0 ? 1.f : 0.f;
-  __syncthreads();
-  // the block's conductance term, shared by every row of the tile
-  float gt[K1][C0];
-  const float* gp = gnorm + ((j * D + d) * H + g * K1) * W + w;
-#pragma unroll
-  for (int kk = 0; kk < K1; ++kk) {
-    const float gv = __ldg(gp + kk * W);
-#pragma unroll
-    for (int c = 0; c < C0; ++c) gt[kk][c] = smem[Nt::W0G + c] * gv;
-  }
-  float v[K1];
-  for (int m = m0; m < m1; ++m) {
-    const float* vp = v01 + ((m * (long long)NB + nb) * D + d) * H + g * K1;
-#pragma unroll
-    for (int kk = 0; kk < K1; ++kk) v[kk] = __ldg(vp + kk);
-    stage01<D, W, O>(smem, a, v, gt);
-    tail<D, W, O>(smem, a, P, out + ((long long)m * nblk + j) * O);
-  }
-}
-
 template <int D, int W, int O>
 int launch_block(const float* x, const float* periph, const float* wpack, int P,
                  float* out, int N, int bn, cudaStream_t stream) {
@@ -283,17 +270,300 @@ int launch_block(const float* x, const float* periph, const float* wpack, int P,
   return (int)cudaGetLastError();
 }
 
+
+// ---------------------------------------------------------------------------
+// B3: the warp-local design, R rows per barrier
+// ---------------------------------------------------------------------------
+constexpr unsigned FULL = 0xffffffffu;
+// rows a stage-0+1 pass takes: each float4 of w1k read from shared memory
+// serves this many rows
+constexpr int S1ROWS = 2;
+
+constexpr int up4(int n) { return (n + 3) / 4 * 4; }
+
+// CELU through the hardware exp2 (__expf: one multiply and MUFU.EX2) in
+// place of the expm1f routine: exp(x) - 1 loses expm1's relative accuracy
+// near 0 but keeps an absolute error of a few 1e-7, within the card gate
+// (atol 1e-5 + rtol 1e-4 |plain|; a CPU test emulates it).
+__device__ __forceinline__ float celu_ex2(float x) {
+  return x > 0.f ? x : __expf(x) - 1.f;
+}
+
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+// B3's shapes and its shared-memory layout, in floats.  The weights come
+// first, in the order pack_grid_weights (kernels/emulator_block/
+// emulator_block.py) packs them and the kernel copies them; every array
+// starts on a 16-byte boundary so that float4 reads stay aligned.
 template <int D, int W, int O>
-int launch_grid(const float* v01, const float* gnorm, const float* wpack, int P,
+struct Grid {
+  static constexpr int NT = D * W * G;          // threads: stage-1 positions
+  static constexpr int NWARP = D * W;           // warp (d, w), lane g
+  static constexpr int R = NWARP;               // rows a pass: one a warp in the head
+  static constexpr int WO = W <= 2 ? 1 : W / 2; // W-stage outputs
+  static constexpr int Q4 = D * WO;             // W-stage output rows
+  static constexpr int FLAT = Q4 * CW;
+  static constexpr int W2S = K2 * 9;            // padded (c, o) row of w2: 36
+  static constexpr int W1K = 0;                 // (K1, C0, O1)
+  static constexpr int W0V = W1K + K1 * C0 * O1;
+  static constexpr int W0G = W0V + C0;
+  static constexpr int B0 = W0G + C0;
+  static constexpr int B1 = B0 + C0;
+  static constexpr int W2 = B1 + O1;            // (K2, 36): w2[kk2*8 + c][o]
+  static constexpr int B2 = W2 + K2 * W2S;
+  static constexpr int W3 = B2 + 4;             // (K3*C2, C3)
+  static constexpr int B3 = W3 + K3 * C2 * C3;
+  static constexpr int WST = B3 + C3;           // (2*C3, CW)
+  static constexpr int BST = WST + 2 * C3 * CW;
+  static constexpr int F0 = BST + CW;           // (FLAT, F1), rows (d, w, c)
+  static constexpr int FB0 = F0 + FLAT * F1;    // fc0's bias + its periph row
+  static constexpr int F1W = FB0 + F1;          // (F1, F2)
+  static constexpr int FB1 = F1W + F1 * F2;
+  static constexpr int F2W = FB1 + F2;          // (F2, O)
+  static constexpr int FB2 = F2W + up4(F2 * O);
+  static constexpr int NW = FB2 + 4;            // packed weights
+  static constexpr int H2 = NW;                 // (NWARP, R, 32) stage-2 stash
+  static constexpr int H3 = H2 + NWARP * R * 32;      // (2, R, NWARP, 32)
+  static constexpr int H4 = H3 + 2 * R * NWARP * 32;  // (NWARP, FLAT)
+  static constexpr int H5 = H4 + NWARP * FLAT;  // (NWARP, F1)
+  static constexpr int H6 = H5 + NWARP * F1;    // (NWARP, F2)
+  static constexpr int FLOATS = H6 + NWARP * F2;
+  static constexpr int BYTES = FLOATS * 4;
+  static_assert(W0V % 4 == 0 && B1 % 4 == 0 && W2 % 4 == 0 && W3 % 4 == 0 &&
+                F0 % 4 == 0 && F1W % 4 == 0 && F2W % 4 == 0 && NW % 4 == 0,
+                "16-byte boundaries");
+  static_assert(W % 2 == 0, "the W-stage pairs columns");
+  static_assert(R % S1ROWS == 0, "stage-1 passes tile the rows of a pass");
+  static_assert(G == 32 && K2 * K3 == G && K2 * O1 == 32 && K3 * C2 == 32,
+                "one warp is one stage-1 column; stage 3 takes it whole");
+};
+
+// B3: thread block (j, i) evaluates crossbar block j for rows [i*bm,
+// min(M, (i+1)*bm)).
+template <int D, int W, int O>
+__global__ void __launch_bounds__(D * W * G, D * W * G <= 256 ? 2 : 1)
+grid_warp_kernel(const float* __restrict__ v01, const float* __restrict__ gn,
+                 const float* __restrict__ wpack, float* __restrict__ out,
+                 int M, int NB, int NO, int bm) {
+  using L = Grid<D, W, O>;
+  constexpr int NT = L::NT, NWARP = L::NWARP, R = L::R, WO = L::WO;
+  constexpr int Q4 = L::Q4, FLAT = L::FLAT;
+  extern __shared__ float4 smem4[];
+  float* s = reinterpret_cast<float*>(smem4);
+
+  // 32-bit bookkeeping where it fits (NB*NO < 2^31, the wrapper checks):
+  // the registers go to the fold's g0
+  const int tid = threadIdx.x, lane = tid & 31, wi = tid >> 5;
+  const int j = blockIdx.x;                   // crossbar block nb*NO + no
+  const int nb = j / NO;
+  const int m0 = blockIdx.y * bm;
+  const int m1 = min(M, m0 + bm);
+
+  // ---- the weights to shared memory; the stage-2 stash zeroed ----------
+  const float4* w4 = reinterpret_cast<const float4*>(wpack);
+  for (int i = tid; i < L::NW / 4; i += NT) smem4[i] = __ldg(w4 + i);
+  for (int i = tid; i < NWARP * R * 32; i += NT) s[L::H2 + i] = 0.f;
+
+  // ---- the fold: this position's stage-0 conductance terms, once ---------
+  // position (d, w, g) = (warp / W, warp % W, lane); g_norm is (NB*NO, D,
+  // H, W) and tap kk of row group g is wordline g*K1 + kk
+  const int d = wi / W, w = wi % W, g = lane;
+  float g0[K1][C0];
+#pragma unroll
+  for (int kk = 0; kk < K1; ++kk) {
+    const float gv = __ldg(gn + (((long long)j * D + d) * H + g * K1 + kk) * W + w);
+#pragma unroll
+    for (int c = 0; c < C0; ++c)     // rounded apart: no FMA across the add
+      g0[kk][c] = __fadd_rn(__fmul_rn(gv, __ldg(wpack + L::W0G + c)),
+                            __ldg(wpack + L::B0 + c));
+  }
+  __syncthreads();
+
+  // this position's drive: v01[m, nb, d, g*K1 + kk]
+  const float* vp = v01 + ((long long)nb * D + d) * H + g * K1;
+  const int vstride = NB * D * H;
+  float* h2w = s + L::H2 + wi * (R * 32);       // this warp's stage-2 stash
+  int buf = 0;
+  for (int mg = m0; mg < m1; mg += R, buf ^= 1) {
+    const int nr = min(R, m1 - mg);
+    for (int r = 0; r < nr; r += S1ROWS) {
+      // ---- stage 0+1 on S1ROWS rows (a row past nr repeats the last) ---
+      float2 v[S1ROWS];
+#pragma unroll
+      for (int q = 0; q < S1ROWS; ++q)
+        v[q] = __ldg(reinterpret_cast<const float2*>(
+            vp + (long long)min(mg + r + q, m1 - 1) * vstride));
+      float t[S1ROWS][O1];
+#pragma unroll
+      for (int q = 0; q < S1ROWS; ++q)
+#pragma unroll
+        for (int o = 0; o < O1; ++o) t[q][o] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < K1; ++kk) {
+#pragma unroll
+        for (int c = 0; c < C0; ++c) {
+          const float4 wa = ld4(s + L::W1K + (kk * C0 + c) * O1);
+          const float4 wb = ld4(s + L::W1K + (kk * C0 + c) * O1 + 4);
+#pragma unroll
+          for (int q = 0; q < S1ROWS; ++q) {
+            const float h0 = celu_ex2(
+                fmaf(kk == 0 ? v[q].x : v[q].y, s[L::W0V + c], g0[kk][c]));
+            t[q][0] = fmaf(h0, wa.x, t[q][0]); t[q][1] = fmaf(h0, wa.y, t[q][1]);
+            t[q][2] = fmaf(h0, wa.z, t[q][2]); t[q][3] = fmaf(h0, wa.w, t[q][3]);
+            t[q][4] = fmaf(h0, wb.x, t[q][4]); t[q][5] = fmaf(h0, wb.y, t[q][5]);
+            t[q][6] = fmaf(h0, wb.z, t[q][6]); t[q][7] = fmaf(h0, wb.w, t[q][7]);
+          }
+        }
+        // no load of the next tap's weights is hoisted above this point:
+        // ptxas otherwise runs past the 128-register cap and spills
+        asm volatile("" ::: "memory");
+      }
+      // ---- stage 2: window K2 over g, 8 -> 4 channels -------------------
+      // lane g's share of output row g/4: its 8 channels against rows
+      // (g%4)*8 + c of w2
+      float p[S1ROWS][C2];
+#pragma unroll
+      for (int q = 0; q < S1ROWS; ++q) {
+#pragma unroll
+        for (int o = 0; o < O1; ++o) t[q][o] = celu_ex2(t[q][o] + s[L::B1 + o]);
+#pragma unroll
+        for (int o = 0; o < C2; ++o) p[q][o] = 0.f;
+      }
+#pragma unroll
+      for (int c = 0; c < O1; ++c) {
+        const float4 wv = ld4(s + L::W2 + (g & 3) * L::W2S + c * C2);
+#pragma unroll
+        for (int q = 0; q < S1ROWS; ++q) {
+          p[q][0] = fmaf(t[q][c], wv.x, p[q][0]);
+          p[q][1] = fmaf(t[q][c], wv.y, p[q][1]);
+          p[q][2] = fmaf(t[q][c], wv.z, p[q][2]);
+          p[q][3] = fmaf(t[q][c], wv.w, p[q][3]);
+        }
+      }
+      // reduce-scatter over the 4 lanes of the window: lane g keeps
+      // channel g % 4 (bit 1 of the lane picks the channel pair, bit 0
+      // the channel), which is stage 3's input element g
+      const bool hi = lane & 2, odd = lane & 1;
+      const float b2 = s[L::B2 + (lane & 3)];
+#pragma unroll
+      for (int q = 0; q < S1ROWS; ++q) {
+        float k0 = hi ? p[q][2] : p[q][0];
+        float k1 = hi ? p[q][3] : p[q][1];
+        k0 += __shfl_xor_sync(FULL, hi ? p[q][0] : p[q][2], 2);
+        k1 += __shfl_xor_sync(FULL, hi ? p[q][1] : p[q][3], 2);
+        float k = odd ? k1 : k0;
+        k += __shfl_xor_sync(FULL, odd ? k0 : k1, 1);
+        h2w[(r + q) * 32 + lane] = celu_ex2(k + b2);
+      }
+    }
+    __syncwarp();
+
+    // ---- stage 3: the column's 32 inputs -> 32 channels, R rows at once
+    // (rows past nr run on stale inputs; the head never reads them)
+    float acc[R];
+#pragma unroll
+    for (int i = 0; i < R; ++i) acc[i] = 0.f;
+#pragma unroll 2
+    for (int kq = 0; kq < K3 * C2 / 4; ++kq) {
+      const float w0 = s[L::W3 + (4 * kq) * C3 + lane];
+      const float w1 = s[L::W3 + (4 * kq + 1) * C3 + lane];
+      const float w2 = s[L::W3 + (4 * kq + 2) * C3 + lane];
+      const float w3 = s[L::W3 + (4 * kq + 3) * C3 + lane];
+#pragma unroll
+      for (int i = 0; i < R; ++i) {
+        const float4 x = ld4(h2w + i * 32 + 4 * kq);
+        acc[i] = fmaf(x.x, w0, acc[i]);
+        acc[i] = fmaf(x.y, w1, acc[i]);
+        acc[i] = fmaf(x.z, w2, acc[i]);
+        acc[i] = fmaf(x.w, w3, acc[i]);
+      }
+    }
+    float* h3 = s + L::H3 + buf * (R * NWARP * 32);   // (R, NWARP, 32)
+    const float b3 = s[L::B3 + lane];
+#pragma unroll
+    for (int i = 0; i < R; ++i)
+      h3[(i * NWARP + wi) * 32 + lane] = celu_ex2(acc[i] + b3);
+    __syncthreads();
+
+    // ---- W-stage and FC head: warp wi takes row mg + wi -----------------
+    if (wi < nr) {
+      const float* in = h3 + wi * NWARP * 32;   // the row's columns
+      float a4[Q4];
+#pragma unroll
+      for (int q = 0; q < Q4; ++q) a4[q] = 0.f;
+      // column pairs (2wo, 2wo+1) of tile dq: 64 contiguous inputs
+#pragma unroll 4
+      for (int kq = 0; kq < 2 * C3 / 4; ++kq) {
+        const float w0 = s[L::WST + (4 * kq) * CW + lane];
+        const float w1 = s[L::WST + (4 * kq + 1) * CW + lane];
+        const float w2 = s[L::WST + (4 * kq + 2) * CW + lane];
+        const float w3 = s[L::WST + (4 * kq + 3) * CW + lane];
+#pragma unroll
+        for (int q = 0; q < Q4; ++q) {
+          const float4 x = ld4(in + ((q / WO) * W + 2 * (q % WO)) * C3 + 4 * kq);
+          a4[q] = fmaf(x.x, w0, a4[q]);
+          a4[q] = fmaf(x.y, w1, a4[q]);
+          a4[q] = fmaf(x.z, w2, a4[q]);
+          a4[q] = fmaf(x.w, w3, a4[q]);
+        }
+      }
+      float* h4 = s + L::H4 + wi * FLAT;
+      const float bst = s[L::BST + lane];
+#pragma unroll
+      for (int q = 0; q < Q4; ++q) h4[q * CW + lane] = celu_ex2(a4[q] + bst);
+      __syncwarp();
+      // fc0: lane = output; four partial chains over the FLAT inputs; the
+      // periph's row is in the bias
+      float f[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll 8
+      for (int kq = 0; kq < FLAT / 4; ++kq) {
+        const float4 x = ld4(h4 + 4 * kq);
+        f[0] = fmaf(x.x, s[L::F0 + (4 * kq) * F1 + lane], f[0]);
+        f[1] = fmaf(x.y, s[L::F0 + (4 * kq + 1) * F1 + lane], f[1]);
+        f[2] = fmaf(x.z, s[L::F0 + (4 * kq + 2) * F1 + lane], f[2]);
+        f[3] = fmaf(x.w, s[L::F0 + (4 * kq + 3) * F1 + lane], f[3]);
+      }
+      float* h5 = s + L::H5 + wi * F1;
+      h5[lane] = celu_ex2(((f[0] + f[1]) + (f[2] + f[3])) + s[L::FB0 + lane]);
+      __syncwarp();
+      // fc1: lanes o and o + 16 compute output o
+      const int o1 = lane & (F2 - 1);
+      float e0 = 0.f, e1 = 0.f;
+#pragma unroll
+      for (int kq = 0; kq < F1 / 4; ++kq) {
+        const float4 x = ld4(h5 + 4 * kq);
+        e0 = fmaf(x.x, s[L::F1W + (4 * kq) * F2 + o1], e0);
+        e1 = fmaf(x.y, s[L::F1W + (4 * kq + 1) * F2 + o1], e1);
+        e0 = fmaf(x.z, s[L::F1W + (4 * kq + 2) * F2 + o1], e0);
+        e1 = fmaf(x.w, s[L::F1W + (4 * kq + 3) * F2 + o1], e1);
+      }
+      float* h6 = s + L::H6 + wi * F2;
+      const float v6 = celu_ex2((e0 + e1) + s[L::FB1 + o1]);
+      if (lane < F2) h6[lane] = v6;
+      __syncwarp();
+      if (lane < O) {
+        float y = 0.f;
+#pragma unroll
+        for (int k = 0; k < F2; ++k) y = fmaf(h6[k], s[L::F2W + k * O + lane], y);
+        out[((long long)(mg + wi) * NB * NO + j) * O + lane] = y + s[L::FB2 + lane];
+      }
+    }
+  }
+}
+
+template <int D, int W, int O>
+int launch_grid(const float* v01, const float* gnorm, const float* wpack,
                 float* out, int M, int NB, int NO, int bm, cudaStream_t stream) {
-  const size_t bytes = sizeof(float) * Net<D, W, O>::smem_floats(P);
-  cudaError_t e = cudaFuncSetAttribute(grid_kernel<D, W, O>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       (int)bytes);
-  if (e != cudaSuccess) return (int)e;
+  using L = Grid<D, W, O>;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      grid_warp_kernel<D, W, O>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      L::BYTES);
+  if (attr != cudaSuccess) return (int)attr;
   const dim3 grid((unsigned)((long long)NB * NO), (unsigned)((M + bm - 1) / bm));
-  grid_kernel<D, W, O><<<grid, D * W * G, bytes, stream>>>(v01, gnorm, wpack, P, out,
-                                                           M, NB, NO, bm);
+  grid_warp_kernel<D, W, O><<<grid, L::NT, L::BYTES, stream>>>(
+      v01, gnorm, wpack, out, M, NB, NO, bm);
   return (int)cudaGetLastError();
 }
 
@@ -312,22 +582,38 @@ extern "C" int emulator_block_f32(int geom, const float* x, const float* periph,
   return -1;
 }
 
-extern "C" int emulator_block_grid_f32(int geom, const float* v01,
-                                       const float* gnorm, const float* wpack,
-                                       int n_periph, float* out, int M, int NB,
-                                       int NO, int bm, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (geom == 0)
-    return launch_grid<4, 2, 1>(v01, gnorm, wpack, n_periph, out, M, NB, NO, bm, s);
-  if (geom == 1)
-    return launch_grid<2, 8, 4>(v01, gnorm, wpack, n_periph, out, M, NB, NO, bm, s);
-  return -1;
-}
-
-// Dynamic shared memory one thread block of the geometry takes, in bytes
-// (reported by chip_smoke.py beside ptxas's static counts).
+// Dynamic shared memory one B2 thread block of the geometry takes, in
+// bytes (reported by chip_smoke.py beside ptxas's static counts).
 extern "C" int emulator_block_smem_bytes(int geom, int n_periph) {
   if (geom == 0) return (int)(sizeof(float) * Net<4, 2, 1>::smem_floats(n_periph));
   if (geom == 1) return (int)(sizeof(float) * Net<2, 8, 4>::smem_floats(n_periph));
+  return -1;
+}
+
+// B3: wpack is pack_grid_weights' vector (emulator_block_grid_weights
+// floats, 16-byte aligned), v01 8-byte aligned.
+extern "C" int emulator_block_grid_f32(int geom, const float* v01,
+                                       const float* gnorm, const float* wpack,
+                                       float* out, int M, int NB, int NO,
+                                       int bm, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (geom == 0)
+    return launch_grid<4, 2, 1>(v01, gnorm, wpack, out, M, NB, NO, bm, s);
+  if (geom == 1)
+    return launch_grid<2, 8, 4>(v01, gnorm, wpack, out, M, NB, NO, bm, s);
+  return -1;
+}
+
+// B3's packed weights, in floats, and one thread block's dynamic shared
+// memory, in bytes; -1 for an unknown geom.
+extern "C" int emulator_block_grid_weights(int geom) {
+  if (geom == 0) return Grid<4, 2, 1>::NW;
+  if (geom == 1) return Grid<2, 8, 4>::NW;
+  return -1;
+}
+
+extern "C" int emulator_block_grid_smem_bytes(int geom) {
+  if (geom == 0) return Grid<4, 2, 1>::BYTES;
+  if (geom == 1) return Grid<2, 8, 4>::BYTES;
   return -1;
 }

@@ -20,9 +20,10 @@ its plain PyTorch version.
 * ``emulator_block_grid_cuda`` (B3) replaces ``emulator_block_grid_pallas``:
   the same network per (row, crossbar block), the (V, G) stack built on
   chip from the rows' drive and the blocks' shared conductances, periph
-  (1, 0, ...).  Its plain version builds the broadcast stack in chunks of
-  blocks and calls ``conv4xbar.apply``.
-  B2 and B3 share one network in ``csrc/emulator_block.cu``.
+  (1, 0, ...), which ``pack_grid_weights`` folds into fc0's bias.  Its
+  plain version builds the broadcast stack in chunks of blocks and calls
+  ``conv4xbar.apply``.
+  B2 and B3 are two kernels of ``csrc/emulator_block.cu``.
 
 Each source note says what bounds its kernel and how the design answers.
 The CPU tests use the plain versions; the card run compares each kernel
@@ -266,29 +267,32 @@ def _block_library():
             + [ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
                ctypes.c_void_p])
         lib.emulator_block_grid_f32.argtypes = (
-            [ctypes.c_int] + [ctypes.c_void_p] * 3
-            + [ctypes.c_int, ctypes.c_void_p] + [ctypes.c_int] * 4
+            [ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
             + [ctypes.c_void_p])
         lib.emulator_block_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
+        lib.emulator_block_grid_weights.argtypes = [ctypes.c_int]
+        lib.emulator_block_grid_smem_bytes.argtypes = [ctypes.c_int]
         for f in (lib.emulator_block_f32, lib.emulator_block_grid_f32,
-                  lib.emulator_block_smem_bytes):
+                  lib.emulator_block_smem_bytes,
+                  lib.emulator_block_grid_weights,
+                  lib.emulator_block_grid_smem_bytes):
             f.restype = ctypes.c_int
         _LIB["block"] = lib
     return _LIB["block"]
 
 
-def pack_net_weights(params: dict, geom: BlockGeometry
-                     ) -> Tuple[torch.Tensor, int, int]:
-    """The network's weights in the order ``csrc/emulator_block.cu``
-    (``Net``) reads them, as one float32 vector on the params' device:
-    stage-0 (w0v, w0g, b0), each row-window stage as (k*C_in, C_out) and
-    its bias, the W-stage likewise, fc0's bias, fc1, fc2, then fc0's rows
-    -- the flatten rows in channels-last (d, w, c) order, then the P
-    periph rows.  Returns (weights, geometry id, P); raises on a network
-    or geometry the kernels do not take."""
+def _gid(geom: BlockGeometry) -> int:
+    """The C entry points' template id of a geometry B2/B3 take."""
     gid = _NET_GEOMS.get((geom.tiles, geom.cols, geom.outputs))
     if gid is None or (geom.features, geom.rows) != (2, 64):
         raise ValueError(f"unsupported block geometry {geom}")
+    return gid
+
+
+def _net_geometry(params: dict, geom: BlockGeometry) -> Tuple[int, int, int]:
+    """(geometry id, FLAT, P) of a network the B2/B3 kernels take; raises
+    on any other network or geometry."""
+    gid = _gid(geom)
     if conv4xbar._n_stages(params) != 5 or conv4xbar._n_fc(params) != 3:
         raise ValueError("unsupported Conv4Xbar depth")
     flat = conv4xbar.flat_features(geom)
@@ -303,34 +307,114 @@ def pack_net_weights(params: dict, geom: BlockGeometry
                              f"expected {s}")
     if n_periph < 0:
         raise ValueError("fc0 has fewer rows than the conv flatten")
+    return gid, flat, n_periph
 
-    def window(i):            # (O, I, k) -> (k * I, O)
-        w = params[f"conv{i}_w"]
-        w = w[:, :, 0, :, 0] if i < 4 else w[:, :, 0, 0, :]
-        return w.permute(2, 1, 0)
 
-    w0 = params["conv0_w"][:, :, 0, 0, 0]
+def _window(params: dict, i: int) -> torch.Tensor:
+    """conv{i}'s weight as (k * C_in, C_out): row k*C_in + c, window tap k."""
+    w = params[f"conv{i}_w"]
+    w = w[:, :, 0, :, 0] if i < 4 else w[:, :, 0, 0, :]
+    return w.permute(2, 1, 0)
+
+
+def _fc0_flat(params: dict, geom: BlockGeometry, flat: int) -> torch.Tensor:
+    """fc0's flatten rows in channels-last (d, h, w, c) order."""
     d, h, wd = conv4xbar.conv_out_sizes(conv4xbar.build_stages(geom),
                                         geom.tiles, geom.rows, geom.cols)
+    return params["fc0_w"][:flat].reshape(32, d, h, wd, -1).permute(1, 2, 3, 0, 4)
+
+
+def pack_net_weights(params: dict, geom: BlockGeometry
+                     ) -> Tuple[torch.Tensor, int, int]:
+    """The network's weights in the order ``csrc/emulator_block.cu``
+    (``Net``, B2's kernel) reads them, as one float32 vector on the
+    params' device: stage-0 (w0v, w0g, b0), each row-window stage as
+    (k*C_in, C_out) and its bias, the W-stage likewise, fc0's bias, fc1,
+    fc2, then fc0's rows -- the flatten rows in channels-last (d, w, c)
+    order, then the P periph rows.  Returns (weights, geometry id, P);
+    raises on a network or geometry the kernels do not take."""
+    gid, flat, n_periph = _net_geometry(params, geom)
+    w0 = params["conv0_w"][:, :, 0, 0, 0]
     f0 = params["fc0_w"]
-    f0_flat = f0[:flat].reshape(32, d, h, wd, -1).permute(1, 2, 3, 0, 4)
     parts = [w0[:, 0], w0[:, 1], params["conv0_b"]]
     for i in range(1, 5):
-        parts += [window(i), params[f"conv{i}_b"]]
+        parts += [_window(params, i), params[f"conv{i}_b"]]
     parts += [params["fc0_b"], params["fc1_w"], params["fc1_b"],
-              params["fc2_w"], params["fc2_b"], f0_flat, f0[flat:]]
+              params["fc2_w"], params["fc2_b"], _fc0_flat(params, geom, flat),
+              f0[flat:]]
     wpack = torch.cat([p.reshape(-1).float() for p in parts]).contiguous()
     return wpack, gid, n_periph
 
 
+def _up4(n: int) -> int:
+    return -(-n // 4) * 4
+
+
+def grid_layout(geom: BlockGeometry) -> dict:
+    """name -> (offset, shape) of each array in ``pack_grid_weights``'
+    vector, which is the head of B3's shared memory (``Grid`` in
+    ``csrc/emulator_block.cu``); ``"NW"`` -> (total floats, ()).  Every
+    offset is a multiple of 4 floats (16 bytes)."""
+    wo = 1 if geom.cols <= 2 else geom.cols // 2
+    flat, O = geom.tiles * wo * 32, geom.outputs
+    sizes = [("w1k", (2, 16, 8)), ("w0v", (16,)), ("w0g", (16,)), ("b0", (16,)),
+             ("b1", (8,)), ("w2", (4, 36)), ("b2", (4,)), ("w3", (32, 32)),
+             ("b3", (32,)), ("wst", (64, 32)), ("bst", (32,)),
+             ("f0", (flat, 32)), ("fb0", (32,)), ("f1", (32, 16)),
+             ("fb1", (16,)), ("f2", (_up4(16 * O),)), ("fb2", (4,))]
+    out, at = {}, 0
+    for name, shape in sizes:
+        out[name] = (at, shape)
+        at += _up4(int(torch.Size(shape).numel()))
+    out["NW"] = (at, ())
+    return out
+
+
+def pack_grid_weights(params: dict, geom: BlockGeometry
+                      ) -> Tuple[torch.Tensor, int]:
+    """B3's weights as its shared memory holds them (``grid_layout``), one
+    float32 vector on the params' device: stage 1's window as (K1, C0,
+    O1), stage 0 (w0v, w0g, b0), stage 1's bias, stage 2's window with
+    each tap's (c, o) row padded from 32 to 36 floats (no bank conflict
+    between the four lanes of a window), stages 3 and W, fc0's flatten
+    rows in channels-last (d, w, c) order, fc0's bias, fc1, fc2, each
+    array padded to 4 floats.  The slow path's periph is the constant
+    (1, 0, ...): fc0's periph row FLAT is added to fc0's bias here, once
+    per call, and no periph row is packed.  Returns (weights, geometry
+    id); raises on a network or geometry the kernel does not take."""
+    gid, flat, n_periph = _net_geometry(params, geom)
+    w0 = params["conv0_w"][:, :, 0, 0, 0]
+    fb0 = params["fc0_b"]
+    if n_periph:
+        fb0 = fb0 + params["fc0_w"][flat]
+    arrays = dict(
+        w1k=_window(params, 1), w0v=w0[:, 0], w0g=w0[:, 1],
+        b0=params["conv0_b"], b1=params["conv1_b"],
+        w2=torch.nn.functional.pad(_window(params, 2).reshape(4, 32), (0, 4)),
+        b2=params["conv2_b"], w3=_window(params, 3), b3=params["conv3_b"],
+        wst=_window(params, 4), bst=params["conv4_b"],
+        f0=_fc0_flat(params, geom, flat), fb0=fb0, f1=params["fc1_w"],
+        fb1=params["fc1_b"], f2=params["fc2_w"], fb2=params["fc2_b"])
+    parts = []
+    for name, (_, shape) in grid_layout(geom).items():
+        if name == "NW":
+            continue
+        a = arrays[name].reshape(-1).float()
+        parts.append(torch.nn.functional.pad(a, (0, _up4(a.numel()) - a.numel())))
+    return torch.cat(parts).contiguous(), gid
+
+
 def block_smem_bytes(geom: BlockGeometry, n_periph: int) -> int:
-    """Dynamic shared memory one thread block of B2/B3 takes for this
+    """Dynamic shared memory one thread block of B2 takes for this
     geometry and periph width (weights, fc0 rows and activations), as the
     compiled library reckons it; builds the library if needed."""
-    gid = _NET_GEOMS.get((geom.tiles, geom.cols, geom.outputs))
-    if gid is None:
-        raise ValueError(f"unsupported block geometry {geom}")
-    return int(_block_library().emulator_block_smem_bytes(gid, n_periph))
+    return int(_block_library().emulator_block_smem_bytes(_gid(geom), n_periph))
+
+
+def grid_smem_bytes(geom: BlockGeometry) -> int:
+    """Dynamic shared memory one thread block of B3 takes for this
+    geometry, whatever its periph width; builds the library if needed."""
+    return int(_block_library().emulator_block_grid_smem_bytes(_gid(geom)))
 
 
 def default_block_n(N: int) -> int:
@@ -402,12 +486,14 @@ def emulator_block_grid_cuda(params: dict, v01: torch.Tensor,
         raise ValueError("emulator_block_grid_cuda takes CUDA tensors (got "
                          f"{v01.device}); CPU tensors go to the plain version")
     dev = v01.device
-    wpack, gid, P = pack_net_weights(params, geom)
+    wpack, gid = pack_grid_weights(params, geom)
     M, NB, NO = _grid_shapes(v01, g_norm)
     _, D, H, W = geom.chw
     _check("v01", v01, (M, NB, D, H), dev)
     _check("g_norm", g_norm, (NB * NO, D, H, W), dev)
     _check("weights", wpack, wpack.shape, dev)
+    if v01.data_ptr() % 8:
+        raise ValueError("v01 must start on an 8-byte boundary (float2 reads)")
     if NB * NO >= 2 ** 31:
         raise ValueError(f"{NB * NO} blocks exceed the grid's x dimension")
     bm = default_block_m(M) if block_m is None else int(block_m)
@@ -417,9 +503,13 @@ def emulator_block_grid_cuda(params: dict, v01: torch.Tensor,
                       device=dev)
     if M == 0:
         return out
+    lib = _block_library()
+    if wpack.numel() != lib.emulator_block_grid_weights(gid):
+        raise ValueError(f"pack_grid_weights gave {wpack.numel()} floats, the "
+                         f"kernel takes {lib.emulator_block_grid_weights(gid)}")
     stream = torch.cuda.current_stream(dev).cuda_stream
-    _build.launched(_block_library().emulator_block_grid_f32(
-        gid, v01.data_ptr(), g_norm.data_ptr(), wpack.data_ptr(), P,
+    _build.launched(lib.emulator_block_grid_f32(
+        gid, v01.data_ptr(), g_norm.data_ptr(), wpack.data_ptr(),
         out.data_ptr(), M, NB, NO, bm, stream), "emulator_block_grid")
     emulator_block_grid_cuda.launches += 1
     return out

@@ -361,3 +361,139 @@ def test_exp2_celu_of_the_fp32_kernel_holds_the_card_gate(g, npf, NB, NO, M,
     got = eb.emulator_block_unified_plain(ta, tgn, tu, tp, shift=sh)
     assert not torch.equal(got, want)
     assert_close(got, want, 1e-4, 1e-5, "exp2 CELU vs expm1 CELU")
+
+
+# --------------------------------------------------------------------------- #
+# B3's kernel (``grid_warp_kernel``) reads ``pack_grid_weights``' vector, in
+# which fc0's periph row is folded into fc0's bias, and computes in its own
+# order: the fold's g0 = g*w0g + b0 rounded apart, stage 0 as one FMA on it,
+# every CELU as exp2(x*log2e) - 1, fc0 in four partial chains over the
+# flatten (k % 4) summed as (c0 + c1) + (c2 + c3) before the bias.  Emulated
+# here in float32 torch ops (an FMA as a float64 product and sum rounded
+# once), the weights read from the packed vector at ``grid_layout``'s
+# offsets: the emulation stays within the card's gate (rtol 1e-4 / atol
+# 1e-5, chip_smoke.py phase 2) of the plain version and of the reference's
+# ``conv4xbar.apply`` on the broadcast stack.
+# --------------------------------------------------------------------------- #
+_LOG2E = 1.4426950408889634
+
+
+def _celu_ex2(x):
+    return torch.where(x > 0, x, torch.exp2(x * torch.tensor(_LOG2E, dtype=x.dtype)) - 1.0)
+
+
+def _fma(a, b, c):
+    return (a.double() * b.double() + c.double()).float()
+
+
+def _grid_kernel_order(params, v, gn, geom):
+    """B3's function in the kernel's order of operations; (M, NB*NO, O)."""
+    wpack, _ = eb.pack_grid_weights(params, geom)
+    lay = eb.grid_layout(geom)
+
+    def take(name, shape=None):
+        at, shp = lay[name]
+        shp = shp if shape is None else shape
+        return wpack[at:at + int(torch.Size(shp).numel())].reshape(shp)
+
+    M, NB, D, H = v.shape
+    nblk, _, _, W = gn.shape
+    NO, G, WO, O = nblk // NB, H // 2, W // 2, geom.outputs
+    g0 = gn[..., None] * take("w0g") + take("b0")          # (nblk, D, H, W, 16)
+    vb = v[:, torch.arange(nblk) // NO]                    # (M, nblk, D, H)
+    h = _celu_ex2(_fma(vb[..., None, None], take("w0v"), g0[None]))
+    h = h.reshape(M, nblk, D, G, 2, W, 16).permute(0, 1, 2, 5, 3, 4, 6)
+    h = _celu_ex2(h.reshape(M, nblk, D, W, G, 32) @ take("w1k").reshape(32, 8)
+                  + take("b1"))                            # (.., G, 8)
+    w2 = take("w2")[:, :32].reshape(32, 4)
+    h = _celu_ex2(h.reshape(M, nblk, D, W, G // 4, 32) @ w2 + take("b2"))
+    h = _celu_ex2(h.reshape(M, nblk, D, W, 32) @ take("w3") + take("b3"))
+    h = _celu_ex2(h.reshape(M, nblk, D, WO, 64) @ take("wst") + take("bst"))
+    x = h.reshape(M * nblk, -1)                            # (d, w, c) flatten
+    f0 = take("f0")
+    chains = []
+    for i in range(4):
+        acc = torch.zeros(x.shape[0], 32)
+        for k in range(i, x.shape[1], 4):
+            acc = _fma(x[:, k, None], f0[k], acc)
+        chains.append(acc)
+    h = _celu_ex2(((chains[0] + chains[1]) + (chains[2] + chains[3])) + take("fb0"))
+    h = _celu_ex2(h @ take("f1") + take("fb1"))
+    y = h @ take("f2", (16 * O,)).reshape(16, O) + take("fb2", (O,))
+    return y.reshape(M, nblk, O)
+
+
+@pytest.mark.parametrize("g,npf", [("A", 0), ("A", 2), ("A", 15),
+                                   ("B", 0), ("B", 2), ("B", 15)])
+def test_grid_kernel_order_holds_the_card_gate(g, npf):
+    rg, tg = GEOMS[g]
+    jp, tp = both_emulator_params(rg, npf, seed=5 + npf)
+    rng = np.random.default_rng(40 + npf)
+    M, NB, NO = (5, 2, 3) if g == "A" else (3, 2, 2)
+    D, H, W = tg.tiles, tg.rows, tg.cols
+    v = rng.uniform(0, 1, (M, NB, D, H)).astype(np.float32)
+    v[0, 0, 0, :7] = 0.0                                   # idle wordlines
+    gn = rng.uniform(0, 1, (NB * NO, D, H, W)).astype(np.float32)
+    got = _grid_kernel_order(tp, torch.from_numpy(v), torch.from_numpy(gn), tg)
+    want = eb.emulator_block_grid_plain(tp, torch.from_numpy(v),
+                                        torch.from_numpy(gn), tg)
+    assert not torch.equal(got, want)
+    assert_close(got, want, 1e-4, 1e-5, "kernel order vs plain version")
+    x = np.stack(np.broadcast_arrays(
+        v[:, :, None, :, :, None], gn.reshape(NB, NO, D, H, W)[None]), axis=3)
+    per = None
+    if npf:
+        per = np.zeros((M * NB * NO, npf), np.float32)
+        per[:, 0] = 1.0
+    want_ref = rconv.apply(jp, jnp.asarray(x.reshape(M * NB * NO, 2, D, H, W)),
+                           None if per is None else jnp.asarray(per))
+    assert_close(got.reshape(-1, tg.outputs), want_ref, 1e-4, 1e-5,
+                 "kernel order vs the reference's apply")
+
+
+@pytest.mark.parametrize("g,npf", [("A", 0), ("A", 2), ("B", 2), ("B", 15)])
+def test_pack_grid_weights_layout(g, npf):
+    """The vector B3 copies into its shared memory: each array at its
+    ``grid_layout`` offset on a 16-byte boundary, stage 2's taps padded to
+    36 floats, fc0's flatten rows channels-last (as the fast path's
+    permutation) and fc0's bias carrying its periph row FLAT."""
+    rg, tg = GEOMS[g]
+    _, tp = both_emulator_params(rg, npf, seed=3)
+    w, gid = eb.pack_grid_weights(tp, tg)
+    lay = eb.grid_layout(tg)
+    assert gid == {"A": 0, "B": 1}[g]
+    assert w.numel() == lay["NW"][0] == {"A": 8272, "B": 12416}[g]
+    assert all(at % 4 == 0 for at, _ in lay.values())
+
+    def at(name):
+        o, shp = lay[name]
+        return w[o:o + int(torch.Size(shp).numel())].reshape(shp)
+
+    aux = conv4xbar.blocklast_weights(tp, tg)
+    assert torch.equal(at("w1k"), aux["w1k"])
+    assert torch.equal(at("w0v"), aux["w0v"]) and torch.equal(at("w0g"), aux["w0g"])
+    assert torch.equal(at("b0"), tp["conv0_b"]) and torch.equal(at("b1"), tp["conv1_b"])
+    (w2, b2, _), (w3, b3, _) = aux["hstages"][1:]
+    assert torch.equal(at("w2")[:, :32].reshape(32, 4), w2)
+    assert not at("w2")[:, 32:].any()
+    assert torch.equal(at("w3"), w3) and torch.equal(at("b3"), b3)
+    assert torch.equal(at("wst"), aux["wstage"][0])
+    flat = conv4xbar.flat_features(tg)
+    assert torch.equal(at("f0"), aux["fcs"][0][0])
+    want_fb0 = tp["fc0_b"] + tp["fc0_w"][flat] if npf else tp["fc0_b"]
+    assert torch.equal(at("fb0"), want_fb0)
+    O = tg.outputs
+    assert torch.equal(at("f2")[:16 * O].reshape(16, O), tp["fc2_w"])
+    assert torch.equal(at("fb2")[:O], tp["fc2_b"])
+
+
+def test_pack_grid_weights_refuses_other_nets():
+    _, tp = both_emulator_params(REF_A, 2)
+    with pytest.raises(ValueError, match="fc1_w"):
+        eb.pack_grid_weights(dict(tp, fc1_w=torch.zeros(32, 8)), CASE_A)
+    with pytest.raises(ValueError, match="geometry"):
+        eb.pack_grid_weights(tp, CASE_A.__class__("x", 2, 4, 32, 2, 1))
+    with pytest.raises(ValueError, match="depth"):
+        eb.pack_grid_weights({k: v for k, v in tp.items() if k != "fc2_w"}, CASE_A)
+    with pytest.raises(ValueError, match="fewer rows"):
+        eb.pack_grid_weights(dict(tp, fc0_w=torch.zeros(100, 32)), CASE_A)
