@@ -10,17 +10,17 @@ JAX or of the JAX package.  Phases (any failure exits non-zero):
   1. build every kernel from ``src/repro_torch`` (one nvcc per source, in
      parallel): B1 (unified evaluator), B2 (per-block network), B3 (grid
      network), B4 (crossbar MAC), B5 (flash attention), B6 (linear scan);
-     ptxas registers / shared memory / spills (B1's fp32 template's and
-     B3's kernel's per geometry on lines of their own, beside their
+     ptxas registers / shared memory / spills (B1's kernel per mode and
+     geometry and B3's per geometry on lines of their own, beside their
      dynamic shared memory); the tensor-core instructions (HMMA, HGMMA)
      in each library's SASS, which B4 and B5 must have
   2. the emulator kernels against their plain PyTorch versions on the
      card, fp32 with TF32 off, at small shapes (ragged tiles, CASE_A and
      CASE_B, plain and conditioned periph widths; B1 in both modes, given
-     the plan's g_norm, which its fp32 kernel folds into the per-plan
-     precompute itself; B3 with passes of rows cut short: M = R + 1 and
-     one row a tile) and at the full-width gemma3-1b MLP shapes; outputs
-     compared at rtol 1e-4 / atol 1e-5
+     the plan's g_norm, which its kernel folds into the per-plan
+     precompute itself, with passes of rows cut short and one row a tile;
+     B3 likewise: M = R + 1 and one row a tile) and at the full-width
+     gemma3-1b MLP shapes; outputs compared at rtol 1e-4 / atol 1e-5
   3. the emulator lifecycle at the paper's sizes through the port's
      quickstart: label the Table 1 dataset (50,000 + 5,000 CASE_A blocks)
      with the circuit solver, train a Conv4Xbar on it (B2 evaluates the
@@ -31,9 +31,9 @@ JAX or of the JAX package.  Phases (any failure exits non-zero):
   4. B1's times at full-width ``mlp.up`` and ``mlp.down`` (CUDA events)
      beside the least time the card could take; B1's bf16 mode driven
      through the dispatcher at the same shapes, held against its plain
-     version (rtol 1e-4 / atol 1e-5) and against the fp32 mode (atol
-     5e-2), and timed (its call includes the per-plan precompute, timed
-     on its own line: only the bf16 mode still builds it)
+     version (rtol 1e-4 / atol 1e-5; its max abs error, by design 0, is
+     printed) and against the fp32 mode (atol 5e-2), timed, and failed if
+     its call builds the per-plan precompute on the host
   5. the paper's headline: time per CASE_A block for the circuit solver,
      the analytic model, the plain network and B2, at 2,048 and 65,536
      blocks
@@ -90,6 +90,10 @@ B3_CASES = [
     ("A P=0 M=R+1", "A", 0, 9, 2, 3, None), ("B P=2 M=R+1", "B", 2, 17, 2, 2, None),
     ("A P=15 M=13 bm=1", "A", 15, 13, 2, 2, 1),
     ("B P=0 M=13 bm=1", "B", 0, 13, 1, 3, 1)]
+# B1's kernel per geometry and mode, as ptxas names its template instances
+B1_TEMPLATES = {"CASE_A": "fused_kernelILi4ELi2ELi1E",
+                "CASE_B": "fused_kernelILi2ELi8ELi4E"}
+B1_MODES = {"fp32": "Lb0E", "bf16": "Lb1E"}
 # B3's kernel per geometry, as ptxas names its template instances
 B3_TEMPLATES = {"CASE_A": "grid_warp_kernelILi4ELi2ELi1E",
                 "CASE_B": "grid_warp_kernelILi2ELi8ELi4E"}
@@ -100,25 +104,23 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
-def unified_work(M, NB, NO, D, W, O, flat, shift, fold=True):
+def unified_work(M, NB, NO, D, W, O, flat, shift, bf16=False):
     """(bytes, GEMM operations, other operations) the unified block
     evaluator must move and do for one call: every input read once, the
     output written once; an FMA counts 2, an expm1 (inside CELU) 1, a bias
     starts its accumulator (as ``net_flops`` counts).  The GEMM operations
     are the products of the stage-1 window contraction, the tail stages,
-    the W-stage and the FC head (bf16 operands in the bf16 mode).
-    ``fold``: the fp32 kernel, which reads the plan's g_norm and stage 0's
-    weights and computes the per-plan precompute once per block (g0's
-    multiply and add, celu0's expm1, the y0 product and bias); else the
-    bf16 mode's kernel, which reads g0k, celu0k and y0."""
+    the W-stage and the FC head (bf16 operands in the bf16 mode).  The
+    kernel reads the plan's g_norm and stage 0's weights and computes the
+    per-plan precompute once per block (g0's multiply and add, celu0's
+    expm1, the y0 product and bias), in both modes; ``bf16``: the y0
+    product, whose operands stay fp32 in the bf16 mode, counts with the
+    other operations."""
     G, K1, C0, O1 = 32, 2, 16, 8
     nblk = NB * NO
     P = D * W * G
     n_in = 2 * M * NB * D * G * K1                       # u, pos
-    if fold:
-        n_pre = nblk * P * K1 + 2 * C0 + O1              # g_norm, w0g, b0, b1
-    else:
-        n_pre = 2 * nblk * K1 * P * C0 + nblk * P * O1   # g0k, celu0k, y0
+    n_pre = nblk * P * K1 + 2 * C0 + O1                  # g_norm, w0g, b0, b1
     n_w = (C0 + K1 * C0 * O1 + 32 * 4 + 4 + 32 * 32 + 32 + 64 * 32 + 32
            + flat * 32 + 32 + 32 * 16 + 16 + 16 * O + O)
     n_sh = 0 if shift is None else shift.numel()
@@ -135,10 +137,10 @@ def unified_work(M, NB, NO, D, W, O, flat, shift, fold=True):
     other = taps * (4 * C0 + 3 * O1) + P * 5 * O1 + 2 * (
         (P // 4) * 4 + (P // 32) * 32 + D * wo * 32 + 32
         + (32 if shift is not None else 0) + 16)
-    gemm_fold = other_fold = 0
-    if fold:
-        gemm_fold = nblk * P * K1 * C0 * O1 * 2
-        other_fold = nblk * (taps * C0 * 3 + P * O1)
+    gemm_fold = nblk * P * K1 * C0 * O1 * 2
+    other_fold = nblk * (taps * C0 * 3 + P * O1)
+    if bf16:
+        gemm_fold, other_fold = 0, other_fold + gemm_fold
     return (nbytes, M * nblk * gemm + gemm_fold,
             M * nblk * other + other_fold)
 
@@ -321,12 +323,15 @@ def main() -> None:
                                        "error")):
                 print(f"[build]   {line.strip()}", flush=True)
     b1_src = next(src for src in built if src.name == "emulator_block_unified.cu")
-    for kernel, stats in ptxas_stats(built[b1_src][1]).items():
-        if "fused_kernel" in kernel:
-            print(f"[build] B1 fp32 template {kernel}: {stats}", flush=True)
-    for gid, geom in enumerate((CASE_A, CASE_B)):
-        print(f"[build] B1 fp32 dynamic shared memory {geom.name}: "
-              f"{eb.unified_smem_bytes(gid)} B", flush=True)
+    b1_stats = ptxas_stats(built[b1_src][1])
+    for gid, name in enumerate(("CASE_A", "CASE_B")):
+        for mode, dt in (("fp32", torch.float32), ("bf16", BF16)):
+            stats = [v for k, v in b1_stats.items()
+                     if B1_TEMPLATES[name] + B1_MODES[mode] in k]
+            print(f"[build] B1 fused_kernel {mode} {name}: "
+                  f"{stats[0] if stats else 'no ptxas output (library cached)'}"
+                  f"; dynamic shared memory {eb.unified_smem_bytes(gid, dt)} B",
+                  flush=True)
     b3_src = next(src for src in built if src.name == "emulator_block.cu")
     b3_stats = ptxas_stats(built[b3_src][1])
     for name, geom in (("CASE_A", CASE_A), ("CASE_B", CASE_B)):
@@ -388,6 +393,9 @@ def main() -> None:
         ("mlp.up M=128", CASE_A, 0, GEMMA["d_model"], GEMMA["d_ff"], 128, None, None),
         ("mlp.down M=4", CASE_A, 0, GEMMA["d_ff"], GEMMA["d_model"], 4, None, None),
         ("mlp.down M=128", CASE_A, 0, GEMMA["d_ff"], GEMMA["d_model"], 128, None, None),
+        # B1 passes R = D*W/2 rows (4 under CASE_A, 8 under CASE_B)
+        ("A ideal M=9 bm=1", CASE_A, 0, 150, 3, 9, 1, None),
+        ("B flat shift M=R+1", CASE_B, 15, 130, 5, 9, None, "flat"),
     ]
     max_abs = {"B1": 0.0, "B1 bf16": 0.0, "B2": 0.0, "B3": 0.0}
     timed = {}
@@ -563,14 +571,7 @@ def main() -> None:
     # ---- phase 4: B1 times; B1's bf16 mode ---------------------------------
     b1_shapes, b1_bf16_shapes = [], []
     b1_bf16_launches, bf16_vs_f32 = 0, 0.0
-    pre_ms = {}
-    for tag in ("mlp.up", "mlp.down"):
-        aux, gn = timed[(tag, 4)][:2]
-        pre_ms[tag] = cuda_ms(lambda: conv4xbar.blocklast_precompute(aux, gn),
-                              iters=5)
-        print(f"[time] {tag} blocklast_precompute (plain PyTorch, per call of "
-              f"the bf16 mode only; B1 fp32 folds it in): {pre_ms[tag]:.3f} ms "
-              f"[{card}]", flush=True)
+    pre_calls[0] = 0
     for (tag, M), (aux, gn, u, pos, plan) in sorted(timed.items()):
         nbytes, gemm, other = unified_work(M, plan.NB, plan.NO, plan.D,
                                            2 * plan.no, 1, 128, None)
@@ -586,12 +587,22 @@ def main() -> None:
               f"folded in), plain {pms:.3f} ms, bound {bms:.3f} ms ({by}: "
               f"{nbytes / 1e9:.3f} GB, {(gemm + other) / 1e9:.2f} GFLOP at "
               f"fp32) [{card}]", flush=True)
-        # the bf16 mode through the dispatcher, as a caller asks for it
+        # the bf16 mode through the dispatcher, as a caller asks for it;
+        # any host-side build of the precompute is counted
         nbytes, gemm, other = unified_work(M, plan.NB, plan.NO, plan.D,
                                            2 * plan.no, 1, 128, None,
-                                           fold=False)
+                                           bf16=True)
+
+        def bf16_call():
+            conv4xbar.blocklast_precompute = counted_precompute
+            try:
+                return emulator_block_unified(aux, gn, u, pos,
+                                              compute_dtype=BF16)
+            finally:
+                conv4xbar.blocklast_precompute = host_precompute
+
         eb.emulator_block_unified_cuda.launches = 0
-        got = emulator_block_unified(aux, gn, u, pos, compute_dtype=BF16)
+        got = bf16_call()
         torch.cuda.synchronize()
         b1_bf16_launches += eb.emulator_block_unified_cuda.launches
         want = eb.emulator_block_unified_plain(aux, gn, u, pos,
@@ -604,30 +615,30 @@ def main() -> None:
         bf16_vs_f32 = max(bf16_vs_f32, d)
         del got, want, f32
         bms, by = bound_ms(nbytes, (gemm, BF16_FLOP_S), (other, FP32_FLOP_S))
-        call = cuda_ms(lambda: emulator_block_unified(aux, gn, u, pos,
-                                                      compute_dtype=BF16),
-                       iters=10 if M <= 8 else 5)
-        # the kernel's own time: the call less its host-built precompute
-        ms = call - pre_ms[tag]
+        ms = cuda_ms(bf16_call, iters=10 if M <= 8 else 5)
         pms = cuda_ms(lambda: eb.emulator_block_unified_plain(
             aux, gn, u, pos, compute_dtype=BF16), iters=3 if M <= 8 else 1,
             warmup=1)
         b1_bf16_shapes.append(dict(
             shape=f"{tag} K={plan.K} N={plan.N} M={M} bf16 mode", ms=ms,
-            call_ms=call, precompute_ms=pre_ms[tag], plain_ms=pms,
-            bound_ms=bms, bound_by=by, bytes=nbytes, flops=gemm + other,
-            peak="GEMM bf16, the rest fp32"))
-        print(f"[time] B1 bf16 mode {tag} M={M}: call {call:.3f} ms = "
-              f"precompute {pre_ms[tag]:.3f} + kernel {ms:.3f} ms, plain "
-              f"{pms:.3f} ms, bound {bms:.3f} ms ({by}: {nbytes / 1e9:.3f} GB; "
+            plain_ms=pms, bound_ms=bms, bound_by=by, bytes=nbytes,
+            flops=gemm + other, peak="GEMM bf16, the rest fp32"))
+        print(f"[time] B1 bf16 mode {tag} M={M}: kernel {ms:.3f} ms (the "
+              f"precompute folded in), plain {pms:.3f} ms, bound {bms:.3f} ms "
+              f"({by}: {nbytes / 1e9:.3f} GB; "
               f"{gemm / 1e9:.2f} GFLOP GEMM at bf16, {other / 1e9:.2f} GFLOP "
               f"other at fp32) [{card}]", flush=True)
     print(f"[B1 bf16] launches through the dispatcher {b1_bf16_launches}; max "
           f"|bf16 mode - fp32 mode| {bf16_vs_f32:.4e} (gate {B1_BF16_ATOL}); "
-          f"max |kernel - plain| {max_abs['B1 bf16']:.3e}", flush=True)
+          f"max |kernel - plain| {max_abs['B1 bf16']:.3e} (gate rtol {RTOL} "
+          f"/ atol {ATOL}; 0 by design); host-side precompute builds "
+          f"{pre_calls[0]}", flush=True)
     if b1_bf16_launches != len(timed):
         fail(f"B1's bf16 mode launched {b1_bf16_launches} times for "
              f"{len(timed)} dispatcher calls")
+    if pre_calls[0]:
+        fail(f"B1's bf16 mode built the per-plan precompute on the host "
+             f"{pre_calls[0]} times (its kernel folds it in)")
     up_plan = timed[("mlp.up", 4)][4]
     down_plan = timed[("mlp.down", 4)][4]
     del timed

@@ -209,18 +209,23 @@ def stage0_conductance(aux: dict, g_norm: torch.Tensor) -> torch.Tensor:
     return g[..., None] * aux["w0g"] + aux["b0"]
 
 
-def blocklast_precompute(aux: dict, g_norm: torch.Tensor) -> dict:
+def blocklast_precompute(aux: dict, g_norm: torch.Tensor, dot=None) -> dict:
     """Batch-independent per-plan tensors for apply_blocklast.
 
     g0k:    stage-0 conductance pre-activation split by row-window
             position: (k1, NB, NO, D, W, G, C0), contiguous
     celu0k: celu(g0), same split
     y0:     celu(g0) @ W1 + b1, (NB*NO*D*W*G, O1)
+
+    ``dot`` overrides y0's contraction (None: ``torch.matmul``); the
+    unified kernel's bf16 mode passes a float32 dot summed in order.
     """
+    if dot is None:
+        dot = torch.matmul
     g0 = stage0_conductance(aux, g_norm)              # (NB, NO, D, W, H, C0)
     celu0 = celu(g0)
     w1, b1, k1 = aux["hstages"][0]
-    y0 = celu0.reshape(-1, w1.shape[0]) @ w1 + b1     # (NB*NO*D*W*G, O1)
+    y0 = dot(celu0.reshape(-1, w1.shape[0]), w1) + b1  # (NB*NO*D*W*G, O1)
     nb, no, d, w, h, c0 = g0.shape
     shp = (nb, no, d, w, h // k1, k1, c0)             # H -> (G, kk)
     g0k = torch.movedim(g0.reshape(shp), 5, 0).contiguous()

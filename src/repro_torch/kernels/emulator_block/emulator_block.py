@@ -7,13 +7,13 @@ its plain PyTorch version.
   crossbar block) pair -- stage-1 window contraction, tail convs,
   W-stage, FC head and the optional fc0 shift
   (``csrc/emulator_block_unified.cu``).  It takes the plan's ``g_norm``:
-  the fp32 kernel folds the per-plan precompute (``conv4xbar.
-  blocklast_precompute``) in, once per thread block.
+  the kernel folds the per-plan precompute (``conv4xbar.
+  blocklast_precompute``) in, once per thread block, in both modes.
   ``compute_dtype=torch.bfloat16`` is the reference kernel's bf16 mode:
-  every GEMM takes bf16-rounded operands and accumulates in float32; its
-  kernel still reads the precompute, which the wrapper builds.  The plain
-  version is ``blocklast_precompute`` then ``conv4xbar.apply_blocklast``
-  (with ``bf16_dot`` in bf16 mode).
+  every GEMM takes bf16-rounded operands and accumulates in float32.  The
+  plain version is ``blocklast_precompute`` then ``conv4xbar.
+  apply_blocklast``; in bf16 mode y0 goes through ``f32_dot`` and every
+  GEMM through ``bf16_dot``, each summed in order, as the kernel sums.
 * ``emulator_block_cuda`` (B2) replaces ``emulator_block_pallas``: the
   paper-faithful network on full (N, 2, D, H, W) features with a
   per-block periph.  Its plain version is ``conv4xbar.apply``.
@@ -71,21 +71,22 @@ def _library():
         lib.emulator_block_unified_f32.argtypes = (
             [ctypes.c_int] + [ctypes.c_void_p] * 4 + tail)
         lib.emulator_block_unified_bf16.argtypes = (
-            [ctypes.c_int] + [ctypes.c_void_p] * 6 + tail)
-        lib.emulator_block_unified_f32_smem.argtypes = [ctypes.c_int]
+            [ctypes.c_int] + [ctypes.c_void_p] * 4 + tail)
+        lib.emulator_block_unified_smem.argtypes = [ctypes.c_int] * 2
         for f in (lib.emulator_block_unified_f32,
                   lib.emulator_block_unified_bf16,
-                  lib.emulator_block_unified_f32_smem):
+                  lib.emulator_block_unified_smem):
             f.restype = ctypes.c_int
         _LIB["unified"] = lib
     return _LIB["unified"]
 
 
-def unified_smem_bytes(geom: int) -> int:
-    """Dynamic shared memory of one thread block of B1's fp32 kernel for
-    template ``geom`` (0: CASE_A, 1: CASE_B); builds the library if
-    needed."""
-    return int(_library().emulator_block_unified_f32_smem(geom))
+def unified_smem_bytes(geom: int, compute_dtype=torch.float32) -> int:
+    """Dynamic shared memory of one thread block of B1's kernel for
+    template ``geom`` (0: CASE_A, 1: CASE_B) in the mode of
+    ``compute_dtype``; builds the library if needed."""
+    return int(_library().emulator_block_unified_smem(geom,
+                                                      _mode(compute_dtype)))
 
 
 def _check(name: str, t: torch.Tensor, shape, device) -> None:
@@ -103,9 +104,8 @@ def _check(name: str, t: torch.Tensor, shape, device) -> None:
 
 def default_block_m(M: int) -> int:
     """Fixed row-tile heuristic (the autotuner is ROADMAP A4): one tile
-    covers up to 128 rows, so the fp32 kernel folds each block's
-    precompute once per call (the bf16 mode reads it once per call) for
-    decode and prefill batches alike."""
+    covers up to 128 rows, so the kernel folds each block's precompute
+    once per call for decode and prefill batches alike."""
     return min(M, 128)
 
 
@@ -183,9 +183,8 @@ def emulator_block_unified_cuda(aux: dict, g_norm: torch.Tensor,
                                 compute_dtype=torch.float32) -> torch.Tensor:
     """Launch the unified kernel on CUDA tensors; raises on anything it
     does not take.  Same contract as ``emulator_block_unified_plain``:
-    returns (2, M*NB*NO, O) float32.  The fp32 mode folds the per-plan
-    precompute into the kernel; the bf16 mode builds it here (plain
-    PyTorch) and its kernel reads it."""
+    returns (2, M*NB*NO, O) float32.  Both modes fold the per-plan
+    precompute into the kernel; nothing per plan is built here."""
     mode = _mode(compute_dtype)
     if u01.device.type != "cuda":
         raise ValueError("emulator_block_unified_cuda takes CUDA tensors "
@@ -201,16 +200,10 @@ def emulator_block_unified_cuda(aux: dict, g_norm: torch.Tensor,
     sh = 0 if shift is None else shift.data_ptr()
     tail = (sh, a["per_block"], ctypes.byref(wt), out.data_ptr(), M, NB, NO,
             a["bm"], stream)
-    if mode:
-        pre = conv4xbar.blocklast_precompute(aux, g_norm)
-        err = lib.emulator_block_unified_bf16(
-            a["geom"], u01.data_ptr(), pos01.data_ptr(),
-            pre["g0k"].data_ptr(), pre["celu0k"].data_ptr(),
-            pre["y0"].data_ptr(), *tail)
-    else:
-        err = lib.emulator_block_unified_f32(
-            a["geom"], u01.data_ptr(), pos01.data_ptr(), g_norm.data_ptr(),
-            *tail)
+    fn = (lib.emulator_block_unified_bf16 if mode
+          else lib.emulator_block_unified_f32)
+    err = fn(a["geom"], u01.data_ptr(), pos01.data_ptr(), g_norm.data_ptr(),
+             *tail)
     _build.launched(err, "emulator_block_unified")
     emulator_block_unified_cuda.launches += 1
     return out
@@ -219,19 +212,25 @@ def emulator_block_unified_cuda(aux: dict, g_norm: torch.Tensor,
 emulator_block_unified_cuda.launches = 0
 
 
-def bf16_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """The bf16 mode's GEMM ``a @ b``: both operands rounded to bf16, then
-    summed in float32 over the contraction index in order from zero.  A
-    product of two bf16 values is exact in float32, so each step rounds
-    once, as the kernel's FMA does; in the kernel's order the two agree
-    bit for bit, and a bf16 rounding downstream cannot flip between them."""
-    a = a.to(torch.bfloat16).float()
-    b = b.to(torch.bfloat16).float()
+def f32_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` in float32 summed over the contraction index in order from
+    zero, each product and each sum rounded apart: the bf16 mode's y0, as
+    the kernel's fold computes it (``torch.matmul`` sums in its library's
+    own order, which differs between the CPU and the card)."""
     acc = torch.zeros(a.shape[:-1] + b.shape[1:], dtype=torch.float32,
                       device=a.device)
     for k in range(a.shape[-1]):
         acc = acc + a[..., k, None] * b[k]
     return acc
+
+
+def bf16_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The bf16 mode's GEMM ``a @ b``: both operands rounded to bf16, then
+    ``f32_dot``.  A product of two bf16 values is exact in float32, so each
+    step rounds once, as the kernel's FMA does; in the kernel's order the
+    two agree bit for bit, and a bf16 rounding downstream cannot flip
+    between them."""
+    return f32_dot(a.to(torch.bfloat16).float(), b.to(torch.bfloat16).float())
 
 
 def emulator_block_unified_plain(aux: dict, g_norm: torch.Tensor,
@@ -241,10 +240,12 @@ def emulator_block_unified_plain(aux: dict, g_norm: torch.Tensor,
                                  compute_dtype=torch.float32) -> torch.Tensor:
     """The kernel's function in plain PyTorch: ``conv4xbar.
     blocklast_precompute`` on ``g_norm``, then the chunked
-    ``conv4xbar.apply_blocklast``, its GEMMs through ``bf16_dot`` in bf16
-    mode.  Returns (2, M*NB*NO, O) float32."""
-    dot = bf16_dot if _mode(compute_dtype) else None
-    pre = conv4xbar.blocklast_precompute(aux, g_norm)
+    ``conv4xbar.apply_blocklast``; in bf16 mode y0 through ``f32_dot`` and
+    the GEMMs through ``bf16_dot``.  Returns (2, M*NB*NO, O) float32."""
+    bf16 = _mode(compute_dtype)
+    pre = conv4xbar.blocklast_precompute(aux, g_norm,
+                                         dot=f32_dot if bf16 else None)
+    dot = bf16_dot if bf16 else None
     return apply_blocklast(aux, pre, u01, pos01, chunk=chunk,
                            fc0_shift=shift, dot=dot)
 

@@ -54,8 +54,8 @@ def emulator_block_unified(aux: dict, g_norm: torch.Tensor,
     """Both rails of every (row, crossbar block) pair, every corner (B1).
 
     ``g_norm`` is the plan's (NB, NO, D, H, W) normalized conductances;
-    the per-plan precompute is built from it inside the kernel (fp32) or
-    the call (bf16 mode, CPU).  ``shift`` is the fc0 epilogue
+    the per-plan precompute is built from it inside the kernel (both
+    modes) or by the plain version (CPU).  ``shift`` is the fc0 epilogue
     (``sfeat @ aux["f0_scen"]``; None at the ideal corner of a plain
     net); ``chunk`` is the plain version's row chunk.
     ``compute_dtype=torch.bfloat16`` is the reference kernel's bf16 mode

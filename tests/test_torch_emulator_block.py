@@ -106,6 +106,121 @@ def test_bf16_dot_rounds_both_operands():
     assert_close(got, want, 1e-6, 1e-6)
 
 
+# B1's bf16 mode sums every contraction in order from index 0, the kernel
+# and its plain version alike, so that the two agree bit for bit on the
+# card: y0 through ``f32_dot`` (float32, each product and sum rounded
+# apart), the GEMMs through ``bf16_dot``.  ``f32_dot`` is checked against
+# a float32 loop bit for bit and against ``torch.matmul`` at 1e-6, on
+# operands at y0's scale (celu0 in (-1, 1), fan-in-scaled weights: sums of
+# magnitude ~1, a few float32 roundings apart).
+@pytest.mark.parametrize("shape", [(7, 32, 8), (3, 5, 32, 8), (4, 1, 3)])
+def test_f32_dot_is_an_ordered_float32_loop(shape):
+    rng = np.random.default_rng(11)
+    a = rng.uniform(-1, 1, shape[:-1]).astype(np.float32)
+    b = (rng.standard_normal(shape[-2:]) * shape[-2] ** -0.5).astype(np.float32)
+    acc = np.zeros(shape[:-2] + shape[-1:], np.float32)
+    for k in range(shape[-2]):
+        prod = (a[..., k, None] * b[k]).astype(np.float32)
+        acc = (acc + prod).astype(np.float32)
+    got = eb.f32_dot(torch.from_numpy(a), torch.from_numpy(b))
+    assert got.dtype == torch.float32
+    np.testing.assert_array_equal(got.numpy(), acc)
+    assert_close(got, torch.from_numpy(a) @ torch.from_numpy(b), 0.0, 1e-6)
+
+
+@pytest.mark.parametrize("g", ["A", "B"])
+def test_precompute_dot_defaults_to_matmul(g):
+    """``blocklast_precompute(dot=None)`` is the fp32 mode's, bit for bit:
+    y0 = celu(g0) @ w1 + b1 through ``torch.matmul``; with ``f32_dot`` only
+    y0 moves, by float32 roundings."""
+    _, (ta, tgn, _, _) = _setup(g, 0, 2, 3, 1)
+    pre = conv4xbar.blocklast_precompute(ta, tgn)
+    same = conv4xbar.blocklast_precompute(ta, tgn, dot=torch.matmul)
+    w1, b1, _ = ta["hstages"][0]
+    celu0 = conv4xbar.celu(conv4xbar.stage0_conductance(ta, tgn))
+    y0 = celu0.reshape(-1, w1.shape[0]) @ w1 + b1
+    for k in ("g0k", "celu0k", "y0"):
+        assert torch.equal(pre[k], same[k]), k
+    assert torch.equal(pre["y0"], y0)
+    seq = conv4xbar.blocklast_precompute(ta, tgn, dot=eb.f32_dot)
+    assert torch.equal(seq["g0k"], pre["g0k"])
+    assert torch.equal(seq["celu0k"], pre["celu0k"])
+    assert torch.equal(seq["y0"], eb.f32_dot(celu0.reshape(-1, w1.shape[0]), w1) + b1)
+    assert_close(seq["y0"], pre["y0"], 0.0, 1e-6)
+
+
+@pytest.mark.parametrize("g,npf,shift", [("A", 0, None), ("B", 15, "block")])
+def test_bf16_plain_version_sums_y0_in_order(g, npf, shift):
+    """The bf16 mode's plain version is ``apply_blocklast`` on the
+    precompute with ``f32_dot``'s y0 and ``bf16_dot`` GEMMs, bit for bit;
+    the fp32 mode's keeps ``torch.matmul``."""
+    _, (ta, tgn, tu, tp) = _setup(g, npf, 2, 2, 5)
+    sh = None
+    if shift:
+        sh = torch.from_numpy((0.2 * np.random.default_rng(9).standard_normal(
+            (4, 32))).astype(np.float32))
+    got = eb.emulator_block_unified_plain(ta, tgn, tu, tp, shift=sh,
+                                          compute_dtype=torch.bfloat16)
+    pre = conv4xbar.blocklast_precompute(ta, tgn, dot=eb.f32_dot)
+    want = conv4xbar.apply_blocklast(ta, pre, tu, tp, chunk=2, fc0_shift=sh,
+                                     dot=eb.bf16_dot)
+    assert torch.equal(got, want)
+    f32 = eb.emulator_block_unified_plain(ta, tgn, tu, tp, shift=sh)
+    pre = conv4xbar.blocklast_precompute(ta, tgn)
+    assert torch.equal(f32, conv4xbar.apply_blocklast(ta, pre, tu, tp, chunk=2,
+                                                      fc0_shift=sh))
+
+
+# The bf16 mode against the fp32 mode at the ROADMAP B1 gate (atol 5e-2),
+# at the shapes test_bf16_mode_matches_reference_kernel leaves out: both
+# shift forms on both geometries and ragged row counts.
+@pytest.mark.parametrize("g,npf,NB,NO,M,shift", [
+    ("A", 15, 1, 3, 7, "block"), ("B", 15, 2, 1, 9, "flat"),
+    ("B", 15, 3, 2, 4, "block")])
+def test_bf16_mode_within_gate_of_fp32_mode(g, npf, NB, NO, M, shift):
+    _, (ta, tgn, tu, tp) = _setup(g, npf, NB, NO, M)
+    shp = (32,) if shift == "flat" else (NB * NO, 32)
+    sh = torch.from_numpy((0.2 * np.random.default_rng(9).standard_normal(
+        shp)).astype(np.float32))
+    got = emulator_block_unified(ta, tgn, tu, tp, shift=sh,
+                                 compute_dtype=torch.bfloat16)
+    f32 = emulator_block_unified(ta, tgn, tu, tp, shift=sh)
+    assert_close(got, f32, 0.0, 5e-2, "bf16 mode vs float32 mode")
+    assert not torch.equal(got, f32)
+
+
+def _bf16(x):
+    return torch.from_numpy(np.asarray(x, np.float32)).to(torch.bfloat16).float().numpy()
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_bf16_stage2_stash_sums_in_the_plain_order(seed):
+    """The bf16 kernel's stage 2 of one column, emulated: lane g stores its
+    8 rounded channels at stash[(g//4)*36 + (g%4)*8 + c], w2 goes to shared
+    memory as w2s[o*36 + k] = w2[k, o], and lane g sums output (g//4, g%4)
+    as one float32 chain over stash[(g//4)*36 + k], k = 0..31.  That is
+    ``bf16_dot`` of the plain version's (G/4, 32) reshape, bit for bit."""
+    rng = np.random.default_rng(seed)
+    h1 = rng.standard_normal((32, 8)).astype(np.float32)   # (g, c) of a column
+    w2 = rng.standard_normal((32, 4)).astype(np.float32)
+    stash = np.zeros(8 * 36, np.float32)
+    w2s = np.zeros(4 * 36, np.float32)
+    for g in range(32):
+        stash[(g // 4) * 36 + (g % 4) * 8:(g // 4) * 36 + (g % 4) * 8 + 8] = _bf16(h1[g])
+    flat = w2.reshape(-1)
+    for i in range(32 * 4):
+        w2s[(i % 4) * 36 + i // 4] = _bf16(flat[i])
+    lanes = np.zeros(32, np.float32)
+    for g in range(32):
+        acc = np.float32(0.0)
+        for k in range(32):
+            acc = np.float32(acc + np.float32(stash[(g // 4) * 36 + k] * w2s[(g % 4) * 36 + k]))
+        lanes[g] = acc
+    want = eb.bf16_dot(torch.from_numpy(h1).reshape(8, 32), torch.from_numpy(w2))
+    # lane g holds output row g // 4, channel g % 4: stage 3's input g
+    np.testing.assert_array_equal(lanes, want.reshape(-1).numpy())
+
+
 def test_compute_dtype_is_float32_or_bf16():
     _, (ta, tgn, tu, tp) = _setup("A", 0, 1, 2, 2)
     for fn in (emulator_block_unified, eb.emulator_block_unified_cuda):
