@@ -12,15 +12,20 @@ JAX or of the JAX package.  Phases (any failure exits non-zero):
      network), B4 (crossbar MAC), B5 (flash attention), B6 (linear scan);
      ptxas registers / shared memory / spills (B1's kernel per mode and
      geometry and B3's per geometry on lines of their own, beside their
-     dynamic shared memory); the tensor-core instructions (HMMA, HGMMA)
-     in each library's SASS, which B4 and B5 must have
+     dynamic shared memory; B2's beside B3's, and the thread blocks of
+     B2 the card keeps resident, which B2's tile rule spreads N over);
+     the tensor-core
+     instructions (HMMA, HGMMA) in each library's SASS, which B4 and B5
+     must have
   2. the emulator kernels against their plain PyTorch versions on the
      card, fp32 with TF32 off, at small shapes (ragged tiles, CASE_A and
      CASE_B, plain and conditioned periph widths; B1 in both modes, given
      the plan's g_norm, which its kernel folds into the per-plan
      precompute itself, with passes of rows cut short and one row a tile;
-     B3 likewise: M = R + 1 and one row a tile) and at the full-width
-     gemma3-1b MLP shapes; outputs compared at rtol 1e-4 / atol 1e-5
+     B3 likewise: M = R + 1 and one row a tile; B2 with passes of one
+     block, tiles that are not whole passes, P = 0, 2, 15 and 40) and at
+     the full-width gemma3-1b MLP shapes; outputs compared at rtol 1e-4 /
+     atol 1e-5
   3. the emulator lifecycle at the paper's sizes through the port's
      quickstart: label the Table 1 dataset (50,000 + 5,000 CASE_A blocks)
      with the circuit solver, train a Conv4Xbar on it (B2 evaluates the
@@ -36,13 +41,14 @@ JAX or of the JAX package.  Phases (any failure exits non-zero):
      its call builds the per-plan precompute on the host
   5. the paper's headline: time per CASE_A block for the circuit solver,
      the analytic model, the plain network and B2, at 2,048 and 65,536
-     blocks
+     blocks; B2's kernel alone (weights packed once) and its whole call
+     (the host's weight pack, checks, launch), in turns
   6. the executor's slow path: the reference bench protocol (16 x 512 @
      512 x 32, calibrated) per backend (circuit, analytic, emulator slow
      path = B3, emulator fast path = B1); full-width ``mlp.up`` through
      B3 against B1 at rtol 2e-4 / atol 1e-5; a conditioned net given
-     scenario features through B2; B2 and B3 times, each B3 time with
-     its share of the bound
+     scenario features through B2; B3's kernel alone (weights packed
+     once) and its whole call, in turns, each with its share of the bound
   7. the kernels' own entry points, each launched through its ``ops``
      function at full model widths and at a ragged shape, fp32 and bf16:
      B4 ``xbar_mac`` (gemma3-1b's ``mlp.up``/``mlp.down`` as one crossbar
@@ -56,6 +62,9 @@ JAX or of the JAX package.  Phases (any failure exits non-zero):
      ratio to it; B4's and B5's fp32 rows, which run as 3xTF32, carry a
      bound at three TF32 passes beside the one at fp32's CUDA-core rate
   8. a JSON ``kernels`` line, then the card line, then the result line.
+     The B2 and B3 rows' ``ms`` is the kernel alone on weights packed
+     once; their ``call_ms`` is the whole call a user makes, which also
+     packs the weights on the host.  Every other row's ``ms`` is the call.
 """
 from __future__ import annotations
 
@@ -90,6 +99,24 @@ B3_CASES = [
     ("A P=0 M=R+1", "A", 0, 9, 2, 3, None), ("B P=2 M=R+1", "B", 2, 17, 2, 2, None),
     ("A P=15 M=13 bm=1", "A", 15, 13, 2, 2, 1),
     ("B P=0 M=13 bm=1", "B", 0, 13, 1, 3, 1)]
+# B2's phase-2 cases: (label, geometry name, P, N, block_n); R = D*W blocks
+# a pass (8 under CASE_A, 16 under CASE_B): N = 1, 9 and 17 end on a pass
+# of one block; block_n 3, 7 and 32 and the default rule's tiles (N = 5,000
+# and 65,536) are not whole passes; N = 3,001 with block_n 3 launches more
+# thread blocks than the card keeps resident; P = 40 reads periph features
+# past one warp's 32
+B2_CASES = [
+    ("A P=2 N%bn", "A", 2, 1001, 32), ("A no periph", "A", 0, 64, None),
+    ("A P=15", "A", 15, 77, 8), ("B P=2 N%bn", "B", 2, 515, 16),
+    ("B P=15 (>48 KB smem)", "B", 15, 300, None),
+    ("A P=2 N=1", "A", 2, 1, None), ("A P=0 N=9", "A", 0, 9, None),
+    ("B P=15 N=17", "B", 15, 17, None), ("A P=15 N=37 bn=3", "A", 15, 37, 3),
+    ("B P=2 N=100 bn=7", "B", 2, 100, 7), ("A P=2 N=3001 bn=3", "A", 2, 3001, 3),
+    ("A P=40 N=50", "A", 40, 50, None), ("A P=2 N=5000", "A", 2, 5000, None),
+    ("B P=15 N=5000", "B", 15, 5000, None), ("A P=2 N=65536", "A", 2, 65536, None)]
+# B2's kernel per geometry, as ptxas names its template instances
+B2_TEMPLATES = {"CASE_A": "block_warp_kernelILi4ELi2ELi1E",
+                "CASE_B": "block_warp_kernelILi2ELi8ELi4E"}
 # B1's kernel per geometry and mode, as ptxas names its template instances
 B1_TEMPLATES = {"CASE_A": "fused_kernelILi4ELi2ELi1E",
                 "CASE_B": "fused_kernelILi2ELi8ELi4E"}
@@ -102,6 +129,21 @@ B3_TEMPLATES = {"CASE_A": "grid_warp_kernelILi4ELi2ELi1E",
 def fail(msg: str) -> None:
     print(f"chip_smoke: FAIL: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
+
+
+def rand_params(geom, n_periph, seed, dev):
+    """Conv4Xbar params from ``seed`` on ``dev``, with nonzero biases so
+    that every bias path is exercised."""
+    import torch
+    from repro_torch.core import conv4xbar
+    from repro_torch.models.common import init_params
+    p = init_params(seed, conv4xbar.conv4xbar_schema(geom, n_periph), device=dev)
+    g = torch.Generator(device=dev)
+    g.manual_seed(11 + seed)
+    for k in p:
+        if k.endswith("_b"):
+            p[k] = 0.1 * torch.randn(p[k].shape, generator=g, device=dev)
+    return p
 
 
 def unified_work(M, NB, NO, D, W, O, flat, shift, bf16=False):
@@ -335,14 +377,21 @@ def main() -> None:
     b3_src = next(src for src in built if src.name == "emulator_block.cu")
     b3_stats = ptxas_stats(built[b3_src][1])
     for name, geom in (("CASE_A", CASE_A), ("CASE_B", CASE_B)):
-        stats = [v for k, v in b3_stats.items() if B3_TEMPLATES[name] in k]
-        print(f"[build] B3 grid_warp_kernel {name}: "
-              f"{stats[0] if stats else 'no ptxas output (library cached)'}; "
-              f"dynamic shared memory {eb.grid_smem_bytes(geom)} B", flush=True)
+        for kid, templates, smem in (
+                ("B2 block_warp_kernel", B2_TEMPLATES,
+                 f"{eb.block_smem_bytes(geom, 2)} B at P=2"),
+                ("B3 grid_warp_kernel", B3_TEMPLATES,
+                 f"{eb.grid_smem_bytes(geom)} B")):
+            stats = [v for k, v in b3_stats.items() if templates[name] in k]
+            print(f"[build] {kid} {name}: "
+                  f"{stats[0] if stats else 'no ptxas output (library cached)'}"
+                  f"; dynamic shared memory {smem}", flush=True)
     for geom in (CASE_A, CASE_B):
         for P in (0, 2, 15):
             print(f"[build] B2 dynamic shared memory {geom.name} P={P}: "
-                  f"{eb.block_smem_bytes(geom, P)} B", flush=True)
+                  f"{eb.block_smem_bytes(geom, P)} B; resident thread blocks "
+                  f"(the runtime's occupancy x SMs) {eb.block_slots(geom, P, dev)}",
+                  flush=True)
     tensor_core_counts(built)
     fa = importlib.import_module("repro_torch.kernels.flash_attention.flash_attention")
     for D in (64, 128, 256):
@@ -354,20 +403,10 @@ def main() -> None:
     acfg = AnalogConfig(enabled=True, backend="emulator", layers=("mlp",))
     nets = {}
 
-    def rand_params(geom, n_periph, seed):
-        p = init_params(seed, conv4xbar.conv4xbar_schema(geom, n_periph),
-                        device=dev)
-        g = torch.Generator(device=dev)
-        g.manual_seed(11 + seed)
-        for k in p:           # nonzero biases exercise every bias path
-            if k.endswith("_b"):
-                p[k] = 0.1 * torch.randn(p[k].shape, generator=g, device=dev)
-        return p
-
     def net(geom, n_periph):
         key = (geom.name, n_periph)
         if key not in nets:
-            p = rand_params(geom, n_periph, 7 + n_periph)
+            p = rand_params(geom, n_periph, 7 + n_periph, dev)
             nets[key] = (p, conv4xbar.blocklast_weights(p, geom))
         return nets[key]
 
@@ -433,13 +472,9 @@ def main() -> None:
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(300)
-    b2_cases = [  # (label, geom, P, N, block_n)
-        ("A P=2 N%bn", CASE_A, 2, 1001, 32), ("A no periph", CASE_A, 0, 64, None),
-        ("A P=15", CASE_A, 15, 77, 8), ("B P=2 N%bn", CASE_B, 2, 515, 16),
-        ("B P=15 (>48 KB smem)", CASE_B, 15, 300, None),
-        ("A P=2 N=65536", CASE_A, 2, 65536, None)]
-    for label, geom, P, N, bn in b2_cases:
-        p = rand_params(geom, P, 20 + P)
+    for label, gname, P, N, bn in B2_CASES:
+        geom = {"A": CASE_A, "B": CASE_B}[gname]
+        p = rand_params(geom, P, 20 + P, dev)
         x = torch.rand((N,) + geom.chw, generator=gen, device=dev)
         per = torch.rand((N, P), generator=gen, device=dev) * 2 - 1 if P else None
         got = eb.emulator_block_cuda(p, x, per, geom, block_n=bn)
@@ -449,14 +484,14 @@ def main() -> None:
         del x, got, want
     for label, gname, P, M, NB, NO, bm in B3_CASES:
         geom = {"A": CASE_A, "B": CASE_B}[gname]
-        p = rand_params(geom, P, 30 + P)
+        p = rand_params(geom, P, 30 + P, dev)
         v = torch.rand((M, NB, geom.tiles, geom.rows), generator=gen, device=dev)
         gn = torch.rand((NB * NO,) + geom.chw[1:], generator=gen, device=dev)
         got = eb.emulator_block_grid_cuda(p, v, gn, geom, block_m=bm)
         torch.cuda.synchronize()
         want = eb.emulator_block_grid_plain(p, v, gn, geom)
         max_abs["B3"] = max(max_abs["B3"], compare(f"B3 {label}", got, want))
-    p_grid = rand_params(CASE_A, 2, 32)
+    p_grid = rand_params(CASE_A, 2, 32, dev)
     for (tag, M), (_, _, u, _, plan) in sorted(timed.items()):
         if M != 4:
             continue
@@ -665,6 +700,12 @@ def main() -> None:
             "B2": lambda: eb.emulator_block_cuda(trained, xn, per, CASE_A),
         }
         row = {name: cuda_ms(fn, iters=it, warmup=1) for name, fn in routes.items()}
+        # B2's kernel alone (the weights packed once) and its whole call
+        # (pack, checks, launch), in turns
+        pk = eb.pack_block_weights(trained, CASE_A)
+        b2_kernel, b2_call = paired_ms(
+            [lambda: eb.launch_block(pk, xn, per, CASE_A), routes["B2"]],
+            iters=20 if N <= 2048 else 5)
         if N == 2048:
             # the repo's own structural check (tests/test_system.py): a
             # trained emulator tracks the circuit on its training
@@ -680,18 +721,21 @@ def main() -> None:
         per_block[N] = {k: v * 1e3 / N for k, v in row.items()}     # us/block
         nbytes, flops = block_work(CASE_A, N, 2)
         bms, by = bound_ms(nbytes, (flops, FP32_FLOP_S))
-        b2_shapes.append(dict(shape=f"CASE_A N={N} P=2", ms=row["B2"],
-                              plain_ms=row["plain apply"], bound_ms=bms,
-                              bound_by=by, bytes=nbytes, flops=flops))
+        b2_shapes.append(dict(shape=f"CASE_A N={N} P=2", ms=b2_kernel,
+                              call_ms=b2_call, plain_ms=row["plain apply"],
+                              bound_ms=bms, bound_by=by, bytes=nbytes,
+                              flops=flops, bound_share=bms / b2_kernel))
         print(f"[headline] N={N} CASE_A blocks, us per block: " + ", ".join(
             f"{k} {v:.5f}" for k, v in per_block[N].items())
-            + f"; circuit / B2 = {row['circuit'] / row['B2']:.1f}x [{card}]",
+            + f"; circuit / B2 = {row['circuit'] / row['B2']:.1f}x (the call), "
+            f"{row['circuit'] / b2_kernel:.1f}x (the kernel alone) [{card}]",
             flush=True)
-        print(f"[time] B2 N={N}: kernel {row['B2']:.3f} ms, plain "
+        print(f"[time] B2 N={N}: kernel {b2_kernel:.4f} ms, call (pack, "
+              f"checks, launch) {b2_call:.4f} ms, plain "
               f"{row['plain apply']:.3f} ms, bound {bms:.4f} ms ({by}: "
-              f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP) [{card}]",
-              flush=True)
-        del xr, xn, per, routes
+              f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP), "
+              f"{100 * bms / b2_kernel:.1f}% of the bound [{card}]", flush=True)
+        del xr, xn, per, routes, pk
         torch.cuda.empty_cache()
 
     # ---- phase 6: the executor's slow path ----------------------------------
@@ -774,7 +818,7 @@ def main() -> None:
         fail(f"B3 launched {b3_launches} times for {b3_calls} slow-path calls")
 
     # a conditioned net given scenario features takes B2 with its periph
-    pc = rand_params(CASE_A, 15, 50)
+    pc = rand_params(CASE_A, 15, 50, dev)
     sfeat = 0.5 * torch.randn(13, generator=gs, device=dev)
     w = torch.randn((200, 6), generator=gs, device=dev) * 0.1
     x = torch.randn((3, 200), generator=gs, device=dev)
@@ -800,17 +844,22 @@ def main() -> None:
                            device=dev)
             nbytes, flops = grid_work(CASE_A, rows, plan.NB, plan.NO, 2)
             bms, by = bound_ms(nbytes, (flops, FP32_FLOP_S))
-            ms = cuda_ms(lambda: eb.emulator_block_grid_cuda(trained, v, gn, CASE_A),
-                         iters=5 if M <= 8 else 3, warmup=1)
+            pk = eb.pack_grid_weights(trained, CASE_A)
+            ms, call_ms = paired_ms(
+                [lambda: eb.launch_grid(pk, v, gn, CASE_A),
+                 lambda: eb.emulator_block_grid_cuda(trained, v, gn, CASE_A)],
+                iters=5 if M <= 8 else 2, reps=5, warmup=1)
             pms = None
             if M <= 8:
                 pms = cuda_ms(lambda: eb.emulator_block_grid_plain(
                     trained, v, gn, CASE_A), iters=1, warmup=1)
             b3_shapes.append(dict(shape=f"{tag} K={plan.K} N={plan.N} M={M} "
-                                  f"({rows} rail rows)", ms=ms, plain_ms=pms,
+                                  f"({rows} rail rows)", ms=ms,
+                                  call_ms=call_ms, plain_ms=pms,
                                   bound_ms=bms, bound_by=by, bytes=nbytes,
                                   flops=flops, bound_share=bms / ms))
             print(f"[time] B3 {tag} M={M} ({rows} rail rows): kernel {ms:.3f} ms, "
+                  f"call (pack, checks, launch) {call_ms:.3f} ms, "
                   f"plain {'not timed' if pms is None else f'{pms:.3f} ms'}, "
                   f"bound {bms:.3f} ms ({by}: {nbytes / 1e6:.1f} MB, "
                   f"{flops / 1e9:.1f} GFLOP), {100 * bms / ms:.1f}% of the "
@@ -889,12 +938,15 @@ def entry(name, source, replaces, launches, err, head, shapes):
     """One kernel's record of the ``kernels`` line: ``source`` under the
     port's kernels, ``replaces`` under the JAX package's; ``head`` is the
     shape whose numbers stand at the top level."""
-    return {"name": name, "route": "cuda",
-            "source": "src/repro_torch/kernels/" + source,
-            "replaces": "src/repro/kernels/" + replaces, "launches": launches,
-            "max_abs_err": err, "ms": head["ms"], "plain_ms": head["plain_ms"],
-            "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
-            "library_ms": head.get("library_ms"), "shapes": shapes}
+    row = {"name": name, "route": "cuda",
+           "source": "src/repro_torch/kernels/" + source,
+           "replaces": "src/repro/kernels/" + replaces, "launches": launches,
+           "max_abs_err": err, "ms": head["ms"], "plain_ms": head["plain_ms"],
+           "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+           "library_ms": head.get("library_ms"), "shapes": shapes}
+    if "call_ms" in head:         # ms is the kernel alone, call_ms the call
+        row["call_ms"] = head["call_ms"]
+    return row
 
 
 def attention_pairs(S, causal, window):

@@ -16,14 +16,17 @@ its plain PyTorch version.
   GEMM through ``bf16_dot``, each summed in order, as the kernel sums.
 * ``emulator_block_cuda`` (B2) replaces ``emulator_block_pallas``: the
   paper-faithful network on full (N, 2, D, H, W) features with a
-  per-block periph.  Its plain version is ``conv4xbar.apply``.
+  per-block periph, on B3's design and shared-memory layout
+  (``pack_block_weights``: fc0's bias as it is, its periph rows after the
+  weights).  Its plain version is ``conv4xbar.apply``.
 * ``emulator_block_grid_cuda`` (B3) replaces ``emulator_block_grid_pallas``:
   the same network per (row, crossbar block), the (V, G) stack built on
   chip from the rows' drive and the blocks' shared conductances, periph
   (1, 0, ...), which ``pack_grid_weights`` folds into fc0's bias.  Its
   plain version builds the broadcast stack in chunks of blocks and calls
   ``conv4xbar.apply``.
-  B2 and B3 are two kernels of ``csrc/emulator_block.cu``.
+  B2 and B3 are two kernels of ``csrc/emulator_block.cu`` sharing one
+  tail and head.
 
 Each source note says what bounds its kernel and how the design answers.
 The CPU tests use the plain versions; the card run compares each kernel
@@ -34,6 +37,7 @@ machine without ``nvcc`` or a card.
 from __future__ import annotations
 
 import ctypes
+import functools
 from pathlib import Path
 from typing import Optional, Tuple
 
@@ -271,10 +275,12 @@ def _block_library():
             [ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
             + [ctypes.c_void_p])
         lib.emulator_block_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
+        lib.emulator_block_resident.argtypes = [ctypes.c_int, ctypes.c_int]
         lib.emulator_block_grid_weights.argtypes = [ctypes.c_int]
         lib.emulator_block_grid_smem_bytes.argtypes = [ctypes.c_int]
         for f in (lib.emulator_block_f32, lib.emulator_block_grid_f32,
                   lib.emulator_block_smem_bytes,
+                  lib.emulator_block_resident,
                   lib.emulator_block_grid_weights,
                   lib.emulator_block_grid_smem_bytes):
             f.restype = ctypes.c_int
@@ -325,28 +331,6 @@ def _fc0_flat(params: dict, geom: BlockGeometry, flat: int) -> torch.Tensor:
     return params["fc0_w"][:flat].reshape(32, d, h, wd, -1).permute(1, 2, 3, 0, 4)
 
 
-def pack_net_weights(params: dict, geom: BlockGeometry
-                     ) -> Tuple[torch.Tensor, int, int]:
-    """The network's weights in the order ``csrc/emulator_block.cu``
-    (``Net``, B2's kernel) reads them, as one float32 vector on the
-    params' device: stage-0 (w0v, w0g, b0), each row-window stage as
-    (k*C_in, C_out) and its bias, the W-stage likewise, fc0's bias, fc1,
-    fc2, then fc0's rows -- the flatten rows in channels-last (d, w, c)
-    order, then the P periph rows.  Returns (weights, geometry id, P);
-    raises on a network or geometry the kernels do not take."""
-    gid, flat, n_periph = _net_geometry(params, geom)
-    w0 = params["conv0_w"][:, :, 0, 0, 0]
-    f0 = params["fc0_w"]
-    parts = [w0[:, 0], w0[:, 1], params["conv0_b"]]
-    for i in range(1, 5):
-        parts += [_window(params, i), params[f"conv{i}_b"]]
-    parts += [params["fc0_b"], params["fc1_w"], params["fc1_b"],
-              params["fc2_w"], params["fc2_b"], _fc0_flat(params, geom, flat),
-              f0[flat:]]
-    wpack = torch.cat([p.reshape(-1).float() for p in parts]).contiguous()
-    return wpack, gid, n_periph
-
-
 def _up4(n: int) -> int:
     return -(-n // 4) * 4
 
@@ -371,23 +355,17 @@ def grid_layout(geom: BlockGeometry) -> dict:
     return out
 
 
-def pack_grid_weights(params: dict, geom: BlockGeometry
-                      ) -> Tuple[torch.Tensor, int]:
-    """B3's weights as its shared memory holds them (``grid_layout``), one
-    float32 vector on the params' device: stage 1's window as (K1, C0,
-    O1), stage 0 (w0v, w0g, b0), stage 1's bias, stage 2's window with
-    each tap's (c, o) row padded from 32 to 36 floats (no bank conflict
-    between the four lanes of a window), stages 3 and W, fc0's flatten
-    rows in channels-last (d, w, c) order, fc0's bias, fc1, fc2, each
-    array padded to 4 floats.  The slow path's periph is the constant
-    (1, 0, ...): fc0's periph row FLAT is added to fc0's bias here, once
-    per call, and no periph row is packed.  Returns (weights, geometry
-    id); raises on a network or geometry the kernel does not take."""
+def _pack(params: dict, geom: BlockGeometry, fold_periph: bool
+          ) -> Tuple[torch.Tensor, int, int]:
+    """The arrays of ``grid_layout`` in its order, each padded to 4 floats,
+    then (unless ``fold_periph``, which adds fc0's periph row FLAT to its
+    bias) fc0's P periph rows; returns (weights, geometry id, P)."""
     gid, flat, n_periph = _net_geometry(params, geom)
     w0 = params["conv0_w"][:, :, 0, 0, 0]
+    f0 = params["fc0_w"]
     fb0 = params["fc0_b"]
-    if n_periph:
-        fb0 = fb0 + params["fc0_w"][flat]
+    if fold_periph and n_periph:
+        fb0 = fb0 + f0[flat]
     arrays = dict(
         w1k=_window(params, 1), w0v=w0[:, 0], w0g=w0[:, 1],
         b0=params["conv0_b"], b1=params["conv1_b"],
@@ -401,14 +379,45 @@ def pack_grid_weights(params: dict, geom: BlockGeometry
         if name == "NW":
             continue
         a = arrays[name].reshape(-1).float()
-        parts.append(torch.nn.functional.pad(a, (0, _up4(a.numel()) - a.numel())))
-    return torch.cat(parts).contiguous(), gid
+        if a.numel() % 4:
+            a = torch.nn.functional.pad(a, (0, _up4(a.numel()) - a.numel()))
+        parts.append(a)
+    if not fold_periph:
+        parts.append(f0[flat:].reshape(-1).float())
+    return torch.cat(parts).contiguous(), gid, n_periph
+
+
+def pack_grid_weights(params: dict, geom: BlockGeometry
+                      ) -> Tuple[torch.Tensor, int]:
+    """B3's weights as its shared memory holds them (``grid_layout``), one
+    float32 vector on the params' device: stage 1's window as (K1, C0,
+    O1), stage 0 (w0v, w0g, b0), stage 1's bias, stage 2's window with
+    each tap's (c, o) row padded from 32 to 36 floats (no bank conflict
+    between the four lanes of a window), stages 3 and W, fc0's flatten
+    rows in channels-last (d, w, c) order, fc0's bias, fc1, fc2, each
+    array padded to 4 floats.  The slow path's periph is the constant
+    (1, 0, ...): fc0's periph row FLAT is added to fc0's bias here, once
+    per call, and no periph row is packed.  Returns (weights, geometry
+    id); raises on a network or geometry the kernel does not take."""
+    wpack, gid, _ = _pack(params, geom, fold_periph=True)
+    return wpack, gid
+
+
+def pack_block_weights(params: dict, geom: BlockGeometry
+                       ) -> Tuple[torch.Tensor, int, int]:
+    """B2's weights: ``grid_layout``'s arrays with fc0's bias as it is
+    (not folded), then fc0's P periph rows as (P, 32), which the kernel
+    keeps beside its activations and multiplies by each block's own periph
+    features.  Returns (weights, geometry id, P); raises on a network or
+    geometry the kernel does not take."""
+    return _pack(params, geom, fold_periph=False)
 
 
 def block_smem_bytes(geom: BlockGeometry, n_periph: int) -> int:
     """Dynamic shared memory one thread block of B2 takes for this
-    geometry and periph width (weights, fc0 rows and activations), as the
-    compiled library reckons it; builds the library if needed."""
+    geometry and periph width (B3's weights and activations, then fc0's
+    periph rows), as the compiled library reckons it; builds the library
+    if needed."""
     return int(_block_library().emulator_block_smem_bytes(_gid(geom), n_periph))
 
 
@@ -418,10 +427,38 @@ def grid_smem_bytes(geom: BlockGeometry) -> int:
     return int(_block_library().emulator_block_grid_smem_bytes(_gid(geom)))
 
 
-def default_block_n(N: int) -> int:
-    """Crossbar blocks per thread block of B2: at least ~1,000 thread
-    blocks for a few thousand blocks, at most 32 blocks each."""
-    return max(1, min(32, N // 1024))
+@functools.lru_cache(maxsize=None)
+def _resident_per_sm(gid: int, n_periph: int, index: int) -> int:
+    with torch.cuda.device(index):
+        n = int(_block_library().emulator_block_resident(gid, n_periph))
+    if n < 1:
+        raise ValueError(f"B2 cannot keep a thread block resident with "
+                         f"{n_periph} periph rows (runtime says {n})")
+    return n
+
+
+def block_slots(geom: BlockGeometry, n_periph: int, dev: torch.device) -> int:
+    """Thread blocks of B2 the card ``dev`` keeps resident at once for this
+    geometry and periph width: the runtime's occupancy for the kernel's
+    registers, threads and dynamic shared memory, times the SMs (on an
+    H100 at the periph widths in use, two an SM under CASE_A and one under
+    CASE_B: 264 and 132).  Builds the library if needed."""
+    dev = torch.device(dev)
+    index = torch.cuda.current_device() if dev.index is None else dev.index
+    return (_resident_per_sm(_gid(geom), n_periph, index)
+            * torch.cuda.get_device_properties(index).multi_processor_count)
+
+
+def default_block_n(N: int, geom: BlockGeometry, slots: int = 2 * 132) -> int:
+    """Blocks per thread block of B2: ceil(N / ``slots``), so that the N
+    blocks spread evenly over at most ``slots`` thread blocks (the wrapper
+    passes ``block_slots``, those the card keeps resident), each copying
+    the weights once and running ceil(bn / R) passes of R = D*W blocks.  Tiles
+    of whole passes cost more wherever they leave resident thread blocks
+    idle or give some of them a second round (tools/b2_variants.py times
+    the alternatives in turns; PERF.md §6).  The output does not depend
+    on the choice."""
+    return max(1, -(-N // slots))
 
 
 def emulator_block_cuda(params: dict, x: torch.Tensor,
@@ -429,12 +466,25 @@ def emulator_block_cuda(params: dict, x: torch.Tensor,
                         *, block_n: Optional[int] = None) -> torch.Tensor:
     """Launch B2 on CUDA tensors; raises on anything it does not take.
     x: (N, 2, D, H, W) normalized features; periph: (N, P), or None when
-    the net has no periph rows.  Returns (N, O) float32."""
+    the net has no periph rows.  ``block_n``: blocks per tile (default
+    ``default_block_n``; any value >= 1, the output does not depend on
+    it).  Returns (N, O) float32."""
+    return launch_block(pack_block_weights(params, geom), x, periph, geom,
+                        block_n=block_n)
+
+
+def launch_block(packed: Tuple[torch.Tensor, int, int], x: torch.Tensor,
+                 periph: Optional[torch.Tensor], geom: BlockGeometry, *,
+                 block_n: Optional[int] = None) -> torch.Tensor:
+    """``emulator_block_cuda`` on weights already packed
+    (``pack_block_weights``' result for ``geom``, 16-byte aligned), for
+    callers that evaluate one net many times; counts the launch.  Returns
+    (N, O) float32."""
     if x.device.type != "cuda":
         raise ValueError("emulator_block_cuda takes CUDA tensors (got "
                          f"{x.device}); CPU tensors go to the plain version")
+    wpack, gid, P = packed
     dev = x.device
-    wpack, gid, P = pack_net_weights(params, geom)
     N = x.shape[0]
     _check("x", x, (N,) + geom.chw, dev)
     if P:
@@ -443,15 +493,24 @@ def emulator_block_cuda(params: dict, x: torch.Tensor,
         _check("periph", periph, (N, P), dev)
     elif periph is not None and periph.numel():
         raise ValueError("the net has no periph rows")
-    _check("weights", wpack, wpack.shape, dev)
-    bn = default_block_n(N) if block_n is None else int(block_n)
-    if bn < 1 or -(-N // bn) >= 2 ** 31:
+    _check_pack(wpack, gid, geom, dev)
+    if N >= 2 ** 30:
+        raise ValueError(f"{N} blocks exceed the kernel's 32-bit bookkeeping")
+    bn = (default_block_n(N, geom, block_slots(geom, P, dev))
+          if block_n is None else int(block_n))
+    if bn < 1:
         raise ValueError(f"block_n={bn} gives an invalid grid for N={N}")
     out = torch.empty((N, geom.outputs), dtype=torch.float32, device=dev)
     if N == 0:
         return out
+    bn = min(bn, N)
+    lib = _block_library()
+    if wpack.numel() != lib.emulator_block_grid_weights(gid) + 32 * P:
+        raise ValueError(f"pack_block_weights gave {wpack.numel()} floats, the "
+                         f"kernel takes {lib.emulator_block_grid_weights(gid)} "
+                         f"+ 32 x {P}")
     stream = torch.cuda.current_stream(dev).cuda_stream
-    _build.launched(_block_library().emulator_block_f32(
+    _build.launched(lib.emulator_block_f32(
         gid, x.data_ptr(), periph.data_ptr() if P else 0, wpack.data_ptr(), P,
         out.data_ptr(), N, bn, stream), "emulator_block")
     emulator_block_cuda.launches += 1
@@ -459,6 +518,19 @@ def emulator_block_cuda(params: dict, x: torch.Tensor,
 
 
 emulator_block_cuda.launches = 0
+
+
+def _check_pack(wpack: torch.Tensor, gid: int, geom: BlockGeometry,
+                dev: torch.device) -> None:
+    """Packed weights the kernels copy as float4: float32, contiguous, on
+    ``dev``, packed for ``geom``, starting on a 16-byte boundary."""
+    _check("weights", wpack, wpack.shape, dev)
+    if gid != _gid(geom):
+        raise ValueError(f"the weights were packed for geometry {gid}, "
+                         f"not {geom.name}")
+    if wpack.data_ptr() % 16:
+        raise ValueError("packed weights must start on a 16-byte boundary "
+                         "(float4 copies)")
 
 
 def emulator_block_plain(params: dict, x: torch.Tensor,
@@ -483,16 +555,26 @@ def emulator_block_grid_cuda(params: dict, v01: torch.Tensor,
     """Launch B3 on CUDA tensors; raises on anything it does not take.
     v01: (M, NB, D, H) normalized drive; g_norm: (NB*NO, D, H, W) shared
     normalized conductances.  Returns (M, NB*NO, O) float32."""
+    return launch_grid(pack_grid_weights(params, geom), v01, g_norm, geom,
+                       block_m=block_m)
+
+
+def launch_grid(packed: Tuple[torch.Tensor, int], v01: torch.Tensor,
+                g_norm: torch.Tensor, geom: BlockGeometry, *,
+                block_m: Optional[int] = None) -> torch.Tensor:
+    """``emulator_block_grid_cuda`` on weights already packed
+    (``pack_grid_weights``' result for ``geom``, 16-byte aligned); counts
+    the launch.  Returns (M, NB*NO, O) float32."""
     if v01.device.type != "cuda":
         raise ValueError("emulator_block_grid_cuda takes CUDA tensors (got "
                          f"{v01.device}); CPU tensors go to the plain version")
     dev = v01.device
-    wpack, gid = pack_grid_weights(params, geom)
+    wpack, gid = packed
     M, NB, NO = _grid_shapes(v01, g_norm)
     _, D, H, W = geom.chw
     _check("v01", v01, (M, NB, D, H), dev)
     _check("g_norm", g_norm, (NB * NO, D, H, W), dev)
-    _check("weights", wpack, wpack.shape, dev)
+    _check_pack(wpack, gid, geom, dev)
     if v01.data_ptr() % 8:
         raise ValueError("v01 must start on an 8-byte boundary (float2 reads)")
     if NB * NO >= 2 ** 31:

@@ -423,33 +423,175 @@ def test_dispatchers_refuse_other_devices():
                                 torch.empty((2, 4, 64, 2), device="meta"), CASE_A)
 
 
+def _block_layout(geom, n_periph):
+    """name -> (offset, shape) in ``pack_block_weights``' vector:
+    ``grid_layout``'s arrays, then ``"fp"``, fc0's P periph rows."""
+    lay = eb.grid_layout(geom)
+    nw = lay["NW"][0]
+    return dict(lay, fp=(nw, (n_periph, 32)), NW=(nw + 32 * n_periph, ()))
+
+
 @pytest.mark.parametrize("g,npf", [("A", 0), ("A", 2), ("B", 2), ("B", 15)])
-def test_pack_net_weights_layout(g, npf):
-    """The packed vector the kernels read: fixed part, then fc0's rows
-    (flatten rows channels-last, then the periph rows), as the source's
-    ``Net`` offsets lay them out."""
+def test_pack_block_weights_layout(g, npf):
+    """The vector B2 copies into its shared memory: B3's arrays at their
+    ``grid_layout`` offsets on 16-byte boundaries, fc0's bias as it is
+    (not folded), then fc0's P periph rows."""
     rg, tg = GEOMS[g]
     _, tp = both_emulator_params(rg, npf, seed=3)
-    w, gid, P = eb.pack_net_weights(tp, tg)
+    w, gid, P = eb.pack_block_weights(tp, tg)
+    lay = _block_layout(tg, npf)
     assert (gid, P) == ({"A": 0, "B": 1}[g], npf)
+    nw = {"A": 8272, "B": 12416}[g]
+    assert w.numel() == lay["NW"][0] == nw + 32 * npf
+    assert all(at % 4 == 0 for at, _ in lay.values())
+    assert lay["fp"] == (nw, (npf, 32))
+
+    def at(name):
+        o, shp = lay[name]
+        return w[o:o + int(torch.Size(shp).numel())].reshape(shp)
+
     flat = conv4xbar.flat_features(tg)
-    fixed = (16 * 3 + (2 * 16 * 8 + 8) + (4 * 8 * 4 + 4) + (8 * 4 * 32 + 32)
-             + (2 * 32 * 32 + 32) + 32 + (32 * 16 + 16) + (16 * tg.outputs + tg.outputs))
-    assert w.numel() == fixed + (flat + npf) * 32
-    assert torch.equal(w[:16], tp["conv0_w"][:, 0, 0, 0, 0])
-    assert torch.equal(w[w.numel() - npf * 32:].reshape(npf, 32), tp["fc0_w"][flat:])
+    assert torch.equal(at("fb0"), tp["fc0_b"])               # unfolded
+    assert torch.equal(at("fp"), tp["fc0_w"][flat:])
     aux = conv4xbar.blocklast_weights(tp, tg)
-    f0 = w[fixed:fixed + flat * 32].reshape(flat, 32)
-    assert torch.equal(f0, aux["fcs"][0][0])      # the fast path's permutation
+    assert torch.equal(at("f0"), aux["fcs"][0][0])
+    assert torch.equal(at("w1k"), aux["w1k"]) and torch.equal(at("w0g"), aux["w0g"])
+    grid, _ = eb.pack_grid_weights(tp, tg)                   # B3's: folded
+    fb0 = eb.grid_layout(tg)["fb0"][0]
+    assert torch.equal(w[:fb0], grid[:fb0]) and torch.equal(w[fb0 + 32:nw],
+                                                             grid[fb0 + 32:])
+    assert torch.equal(grid[fb0:fb0 + 32],
+                       tp["fc0_b"] + tp["fc0_w"][flat] if npf else tp["fc0_b"])
 
 
-def test_pack_net_weights_refuses_other_nets():
+@pytest.mark.parametrize("kernel", ["block", "grid"])
+def test_launch_refuses_a_misaligned_or_foreign_pack(kernel):
+    """B2 and B3 copy their packed weights as float4: a pack that does not
+    start on a 16-byte boundary, or was packed for another geometry, is
+    refused before any launch."""
     _, tp = both_emulator_params(REF_A, 2)
-    bad = dict(tp, fc1_w=torch.zeros(32, 8))
+    pack = getattr(eb, f"pack_{kernel}_weights")
+    w, gid = pack(tp, CASE_A)[:2]
+    dev = w.device
+    eb._check_pack(w, gid, CASE_A, dev)
+    with pytest.raises(ValueError, match="16-byte"):
+        eb._check_pack(torch.cat([w, w[:4]])[1:1 + w.numel()], gid, CASE_A, dev)
+    with pytest.raises(ValueError, match="packed for geometry"):
+        eb._check_pack(w, gid, CASE_B, dev)
+
+
+def test_pack_block_weights_refuses_other_nets():
+    _, tp = both_emulator_params(REF_A, 2)
     with pytest.raises(ValueError, match="fc1_w"):
-        eb.pack_net_weights(bad, CASE_A)
+        eb.pack_block_weights(dict(tp, fc1_w=torch.zeros(32, 8)), CASE_A)
     with pytest.raises(ValueError, match="geometry"):
-        eb.pack_net_weights(tp, CASE_A.__class__("x", 2, 4, 32, 2, 1))
+        eb.pack_block_weights(tp, CASE_A.__class__("x", 2, 4, 32, 2, 1))
+    with pytest.raises(ValueError, match="depth"):
+        eb.pack_block_weights({k: v for k, v in tp.items() if k != "fc2_w"}, CASE_A)
+    with pytest.raises(ValueError, match="fewer rows"):
+        eb.pack_block_weights(dict(tp, fc0_w=torch.zeros(100, 32)), CASE_A)
+
+
+@pytest.mark.parametrize("g", ["A", "B"])
+def test_default_block_n_rule(g):
+    """B2's tiles: ceil(N / slots) blocks each, one tile a thread block, so
+    that N spreads evenly over at most ``slots`` resident thread blocks
+    (two an SM under CASE_A, one under CASE_B); training's 5,000 blocks
+    and the headline's 2,048 and 65,536 fill every slot but a few.  The
+    slots are an H100's (``block_slots`` asks the runtime on the card)."""
+    _, tg = GEOMS[g]
+    slots = {"A": 264, "B": 132}[g]
+    for N in (1, 9, 100, 2048, 5000, 65536, 10 ** 6):
+        bn = eb.default_block_n(N, tg, slots)
+        blocks = -(-N // bn)
+        assert blocks <= slots                               # one round
+        assert bn == 1 or -(-N // (bn - 1)) > slots          # the smallest such tile
+        assert bn * blocks - N < bn                          # only the last tile short
+    for N in (2048, 5000, 65536):
+        blocks = -(-N // eb.default_block_n(N, tg, slots))
+        assert blocks >= slots - slots // 32, (N, blocks)    # no SM left idle
+    assert eb.default_block_n(2048, CASE_A, 264) == 8        # one pass of R
+    assert eb.default_block_n(65536, CASE_A, 264) == 249     # 31 passes and 1 block
+
+
+# B2's kernel (``block_warp_kernel``) reads ``pack_block_weights``' vector:
+# B3's arrays, fc0's bias unfolded, fc0's P periph rows after them.  It
+# computes in its own order: stage 0 as celu(v*w0v + (g*w0g + b0)), both
+# FMAs, every CELU as exp2(x*log2e) - 1, each contraction an FMA chain in
+# the kernel's order (stage 1 over k = kk*16 + c; stage 2's four lanes'
+# partial chains reduce-scattered as (p0 + p2) + (p1 + p3); fc0 in four
+# partial chains over the flatten, the periph features continuing chain
+# i % 4, summed as (c0 + c1) + (c2 + c3) before the bias; fc1 in two
+# chains over even and odd k).  Emulated here in float32 torch ops (an FMA
+# as a float64 product and sum rounded once), the weights read from the
+# packed vector at ``_block_layout``'s offsets: the emulation stays within
+# the card's gate (rtol 1e-4 / atol 1e-5, chip_smoke.py phase 2) of the
+# plain version and of the reference's ``conv4xbar.apply``.
+def _chain(x, w, acc, ks):
+    """acc + sum over ks of x[..., k] * w[k], one FMA at a time in order."""
+    for k in ks:
+        acc = _fma(x[..., k, None], w[k], acc)
+    return acc
+
+
+def _block_kernel_order(params, x, periph, geom):
+    """B2's function in the kernel's order of operations; (N, O)."""
+    wpack, _, P = eb.pack_block_weights(params, geom)
+    lay = _block_layout(geom, P)
+
+    def take(name, shape=None):
+        at, shp = lay[name]
+        shp = shp if shape is None else shape
+        return wpack[at:at + int(torch.Size(shp).numel())].reshape(shp)
+
+    N, _, D, H, W = x.shape
+    G, WO, O = H // 2, W // 2, geom.outputs
+    lead = (N, D, W)
+    v, c = (x[:, i].permute(0, 1, 3, 2)[..., None] for i in (0, 1))  # (N, D, W, H, 1)
+    h = _celu_ex2(_fma(v, take("w0v"), _fma(c, take("w0g"), take("b0"))))
+    h = h.reshape(lead + (G, 32))                          # k = kk*16 + c
+    h = _celu_ex2(_chain(h, take("w1k").reshape(32, 8), torch.zeros(lead + (G, 8)),
+                         range(32)) + take("b1"))
+    # stage 2: lane g = 4j + a sums its 8 channels against tap a's rows
+    w2 = take("w2")[:, :32].reshape(4, 8, 4)
+    h = h.reshape(lead + (G // 4, 4, 8))
+    p = [_chain(h[..., a, :], w2[a], torch.zeros(lead + (G // 4, 4)), range(8))
+         for a in range(4)]
+    h = _celu_ex2(((p[0] + p[2]) + (p[1] + p[3])) + take("b2"))
+    h = h.reshape(lead + (32,))                            # stage 3's input g
+    h = _celu_ex2(_chain(h, take("w3"), torch.zeros(lead + (32,)), range(32))
+                  + take("b3"))
+    h = h.reshape(N, D, WO, 64)                            # column pairs
+    h = _celu_ex2(_chain(h, take("wst"), torch.zeros(N, D, WO, 32), range(64))
+                  + take("bst"))
+    h = h.reshape(N, -1)                                   # (d, w, c) flatten
+    f0 = take("f0")
+    chains = [_chain(h, f0, torch.zeros(N, 32), range(i, h.shape[1], 4))
+              for i in range(4)]
+    if P:
+        fp = take("fp")
+        for i in range(P):
+            chains[i % 4] = _fma(periph[:, i, None], fp[i], chains[i % 4])
+    h = _celu_ex2(((chains[0] + chains[1]) + (chains[2] + chains[3])) + take("fb0"))
+    f1 = take("f1")
+    e = [_chain(h, f1, torch.zeros(N, 16), range(i, 32, 2)) for i in (0, 1)]
+    h = _celu_ex2((e[0] + e[1]) + take("fb1"))
+    y = _chain(h, take("f2", (16 * O,)).reshape(16, O), torch.zeros(N, O), range(16))
+    return y + take("fb2", (O,))
+
+
+@pytest.mark.parametrize("g,npf", [("A", 0), ("A", 2), ("A", 15),
+                                   ("B", 2), ("B", 15)])
+def test_block_kernel_order_holds_the_card_gate(g, npf):
+    rg, tg = GEOMS[g]
+    jp, tp, x, periph = _block_inputs(g, npf, 6 if g == "A" else 4, seed=50 + npf)
+    tx, tper = torch.from_numpy(x), torch.from_numpy(periph)
+    got = _block_kernel_order(tp, tx, tper, tg)
+    want = eb.emulator_block_plain(tp, tx, tper if npf else None)
+    assert not torch.equal(got, want)
+    assert_close(got, want, 1e-4, 1e-5, "kernel order vs plain version")
+    want_ref = rconv.apply(jp, jnp.asarray(x), jnp.asarray(periph) if npf else None)
+    assert_close(got, want_ref, 1e-4, 1e-5, "kernel order vs the reference's apply")
 
 
 # B1's fp32 kernel takes every CELU as exp(x) - 1 from the hardware exp2

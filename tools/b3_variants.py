@@ -7,14 +7,15 @@ Builds, from ``src/repro_torch/kernels/emulator_block/csrc/
 emulator_block.cu``: the kernel as it is (two rows a stage-0+1 pass, every
 CELU from the hardware exp2), a variant with one row a stage-0+1 pass, a
 variant with ``expm1f`` in that CELU, and, given ``--parent``, an earlier
-source whose C entry point ``emulator_block_grid_f32(geom, v01, g_norm,
-wpack, n_periph, out, M, NB, NO, bm, stream)`` reads ``pack_net_weights``'
-vector.  Prints each build's ptxas lines for B3, holds each version against
-the plain version at chip_smoke.py's phase-2 B3 cases and at full-width
-gemma3-1b ``mlp.up`` with 8 rail rows (rtol 1e-4 / atol 1e-5), then times
-full-width ``mlp.up`` / ``mlp.down`` at M = 4 and 128 (8 and 256 rail
-rows), the versions taking turns (median of event pairs; each call packs
-its weights as the wrapper does).  Needs ``nvcc`` and a card.
+source with the same C entry point ``emulator_block_grid_f32(geom, v01,
+g_norm, wpack, out, M, NB, NO, bm, stream)`` on ``pack_grid_weights``'
+vector.  Prints each build's ptxas lines for B3, holds each version
+against the plain version at chip_smoke.py's phase-2 B3 cases and at
+full-width gemma3-1b ``mlp.up`` with 8 rail rows (rtol 1e-4 / atol
+1e-5), then times full-width ``mlp.up`` / ``mlp.down`` at M = 4 and 128
+(8 and 256 rail rows), the versions taking turns (median of event pairs;
+each call packs its weights as the wrapper does).  Needs ``nvcc`` and a
+card.
 """
 from __future__ import annotations
 
@@ -32,8 +33,11 @@ EXP2 = "return x > 0.f ? x : __expf(x) - 1.f;"
 EXPM1 = "return x > 0.f ? x : expm1f(x);"
 
 
-def build(sources: dict, out_dir: Path, nvcc: str, nvcc_flags) -> dict:
-    """name -> library path; one nvcc per source, all started together."""
+def build(sources: dict, out_dir: Path, nvcc: str, nvcc_flags,
+          kernels=("grid",)) -> dict:
+    """name -> library path; one nvcc per source, all started together.
+    Prints the ptxas lines of the kernels whose names hold one of
+    ``kernels``."""
     procs = {}
     for name, path in sources.items():
         lib = out_dir / f"lib{name}.so"
@@ -46,7 +50,7 @@ def build(sources: dict, out_dir: Path, nvcc: str, nvcc_flags) -> dict:
         show = False
         for line in log.splitlines():
             if "Compiling entry" in line:
-                show = "grid" in line
+                show = any(k in line for k in kernels)
                 if show:
                     print(f"[build] {name}: {line.strip()[:160]}", flush=True)
             elif show and ("registers" in line or "spill" in line):
@@ -68,11 +72,9 @@ def main() -> None:
     import chip_smoke as cs
     from repro_torch.configs.base import AnalogConfig
     from repro_torch.configs.rram_ps32 import CASE_A, CASE_B
-    from repro_torch.core import conv4xbar
     from repro_torch.core.crossbar import build_conductance_plan
     from repro_torch.kernels import _build
     from repro_torch.kernels.emulator_block import emulator_block as eb
-    from repro_torch.models.common import init_params
 
     if not torch.cuda.is_available():
         sys.exit("needs a CUDA card")
@@ -99,10 +101,8 @@ def main() -> None:
     fns = {}
     for name, lib in libs.items():
         fn = ctypes.CDLL(str(lib)).emulator_block_grid_f32
-        fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 3
-                       + ([ctypes.c_int] if name == "parent" else [])
-                       + [ctypes.c_void_p] + [ctypes.c_int] * 4
-                       + [ctypes.c_void_p])
+        fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 4
+                       + [ctypes.c_int] * 4 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         fns[name] = fn
 
@@ -113,31 +113,18 @@ def main() -> None:
         bm = eb.default_block_m(M) if bm is None else bm
         out = torch.empty((M, NB * NO, geom.outputs), device=dev)
         stream = torch.cuda.current_stream().cuda_stream
-        if name == "parent":
-            wpack, gid, P = eb.pack_net_weights(p, geom)
-            head = (gid, v.data_ptr(), gn.data_ptr(), wpack.data_ptr(), P)
-        else:
-            wpack, gid = eb.pack_grid_weights(p, geom)
-            head = (gid, v.data_ptr(), gn.data_ptr(), wpack.data_ptr())
-        _build.launched(fns[name](*head, out.data_ptr(), M, NB, NO, bm,
-                                  stream), name)
+        wpack, gid = eb.pack_grid_weights(p, geom)
+        _build.launched(fns[name](gid, v.data_ptr(), gn.data_ptr(),
+                                  wpack.data_ptr(), out.data_ptr(), M, NB, NO,
+                                  bm, stream), name)
         return out
-
-    def rand_params(geom, P, seed):
-        p = init_params(seed, conv4xbar.conv4xbar_schema(geom, P), device=dev)
-        g = torch.Generator(device=dev)
-        g.manual_seed(11 + seed)
-        for k in p:           # nonzero biases exercise every bias path
-            if k.endswith("_b"):
-                p[k] = 0.1 * torch.randn(p[k].shape, generator=g, device=dev)
-        return p
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(300)
     geoms = {"A": CASE_A, "B": CASE_B}
     for label, gname, P, M, NB, NO, bm in cs.B3_CASES:
         geom = geoms[gname]
-        p = rand_params(geom, P, 30 + P)
+        p = cs.rand_params(geom, P, 30 + P, dev)
         v = torch.rand((M, NB, geom.tiles, geom.rows), generator=gen, device=dev)
         gn = torch.rand((NB * NO,) + geom.chw[1:], generator=gen, device=dev)
         want = eb.emulator_block_grid_plain(p, v, gn, geom)
@@ -148,7 +135,7 @@ def main() -> None:
 
     # full-width gemma3-1b: the plans' g_norm as the slow path hands it over
     acfg = AnalogConfig(enabled=True, backend="emulator", layers=("mlp",))
-    p = rand_params(CASE_A, 2, 32)
+    p = cs.rand_params(CASE_A, 2, 32, dev)
     timed = []
     for tag, K, N in (("mlp.up", cs.GEMMA["d_model"], cs.GEMMA["d_ff"]),
                       ("mlp.down", cs.GEMMA["d_ff"], cs.GEMMA["d_model"])):
