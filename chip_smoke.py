@@ -54,17 +54,23 @@ JAX or of the JAX package.  Phases (any failure exits non-zero):
      B4 ``xbar_mac`` (gemma3-1b's ``mlp.up``/``mlp.down`` as one crossbar
      MAC), B5 ``flash_attention`` (gemma3-1b's global and local layers,
      recurrentgemma-2b's local layers), B6 ``linear_scan`` (falcon-mamba-
-     7b's selective-scan state, recurrentgemma-2b's RG-LRU); each held
-     against its plain version (fp32 rtol 1e-4 / atol 1e-5, bf16 rtol
-     1e-2 / atol 1e-2) and timed beside its bound and, where one PyTorch
-     call computes the same function, that call (``library_ms``, timed
-     in turns with the kernel, the median of 7 event pairs each) and the
-     ratio to it; B4's and B5's fp32 rows, which run as 3xTF32, carry a
-     bound at three TF32 passes beside the one at fp32's CUDA-core rate
+     7b's selective-scan state, recurrentgemma-2b's RG-LRU, and ragged
+     shapes with h0, one of an odd row pitch, D = 1001); B4 and B5 held
+     against their plain versions (fp32 rtol 1e-4 / atol 1e-5, bf16 rtol
+     1e-2 / atol 1e-2), B6 bit for bit (``torch.equal``); each timed
+     beside its bound and, where one PyTorch call computes the same
+     function, that call (``library_ms``, timed in turns with the kernel,
+     the median of 7 event pairs each) and the ratio to it; B4's and B5's
+     fp32 rows, which run as 3xTF32, carry a bound at three TF32 passes
+     beside the one at fp32's CUDA-core rate; B6's rows carry, timed in
+     turns, the kernel alone (on b0 folded once), the call (the h0 fold
+     included) and ``torch.add(a, b, out=h)`` (``copy_ms``: what the card
+     achieves for the same traffic, no library call for the scan)
   8. a JSON ``kernels`` line, then the card line, then the result line.
-     The B2 and B3 rows' ``ms`` is the kernel alone on weights packed
-     once; their ``call_ms`` is the whole call a user makes, which also
-     packs the weights on the host.  Every other row's ``ms`` is the call.
+     The B2, B3 and B6 rows' ``ms`` is the kernel alone (B2, B3 on weights
+     packed once); their ``call_ms`` is the whole call a user makes, which
+     also packs the weights on the host (B2, B3) or folds h0 (B6).  Every
+     other row's ``ms`` is the call.
 """
 from __future__ import annotations
 
@@ -946,6 +952,8 @@ def entry(name, source, replaces, launches, err, head, shapes):
            "library_ms": head.get("library_ms"), "shapes": shapes}
     if "call_ms" in head:         # ms is the kernel alone, call_ms the call
         row["call_ms"] = head["call_ms"]
+    if "copy_ms" in head:         # B6's yardstick: torch.add(a, b, out=h)
+        row["copy_ms"] = head["copy_ms"]
     return row
 
 
@@ -1113,10 +1121,13 @@ def entry_points_phase(dev, card):
     torch.cuda.empty_cache()
 
     # -- B6: falcon-mamba-7b's selective-scan state, recurrentgemma's RG-LRU
+    # (D = 1001: a row pitch that is not a multiple of 16 B, whose rows the
+    # kernel copies as the 16-byte chunks that hold them)
     cases = [("falcon-mamba-7b selective scan", 1, 2048, 8192 * 16, False),
              ("falcon-mamba-7b selective scan", 1, 2048, 8192 * 16, True),
              ("recurrentgemma-2b RG-LRU", 4, 2048, 2560, False),
-             ("ragged", 3, 37, 1000, True)]
+             ("ragged", 3, 37, 1000, True),
+             ("ragged, odd pitch", 3, 37, 1001, True)]
     launches, err, shapes = 0, 0.0, []
     for dname, dt, rtol, atol, peak in dtypes:
         for label, B, S, D, with_h0 in cases:
@@ -1132,19 +1143,41 @@ def entry_points_phase(dev, card):
             b0 = None if h0 is None else lsm.fold_h0(a, b, h0)
             want = lsm.linear_scan_plain(a, b, b0)
             shape = f"B6 {label} B={B} S={S} D={D}{' h0' if with_h0 else ''}"
-            err = max(err, compare(f"{shape} {dname}", h.float(), want.float(),
-                                   rtol, atol))
+            plan = lsm._card_plan(B, D, a.element_size(), dev.index or 0)
+            fill = ("tensor copies" if D * a.element_size() % 16 == 0
+                    else "16-byte chunks by cp.async")
+            # the gate is bit-equality: the kernel steps each lane as the
+            # plain version does
+            mabs = float((h.float() - want.float()).abs().max())
+            equal = torch.equal(h, want)
+            print(f"[kernel vs plain] {shape} {dname}: max_abs={mabs:.3e} "
+                  f"bit-equal {equal}; plan C={plan['C']} R={plan['R']} "
+                  f"K={plan['K']}, {plan['blocks']} thread blocks, "
+                  f"{plan['smem']} B of shared memory, {fill}", flush=True)
+            if not equal:
+                fail(f"[{shape} {dname}] B6 is not bit-equal to its plain version")
+            err = max(err, mabs)
             if not torch.equal(h_last, h[:, -1]):
                 fail(f"[{shape}] h_last is not h[:, -1]")
             del h, h_last, want
+            # in turns: the kernel alone (on a b0 folded once), the call
+            # (the fold included), and the yardstick torch.add(a, b, out=),
+            # which moves the same 3 elements per element
             it = 10 if B * S * D > 1e6 else 50
-            ms = cuda_ms(lambda: linear_scan(a, b, h0), iters=it)
+            out = torch.empty_like(a)
+            ms, call_ms, copy_ms = paired_ms(
+                [lambda: lsm.linear_scan_cuda(a, b, b0),
+                 lambda: linear_scan(a, b, h0),
+                 lambda: torch.add(a, b, out=out)], iters=it)
             pms = cuda_ms(lambda: lsm.linear_scan_plain(a, b, b0), iters=1,
                           warmup=1)
             nbytes = (3 * B * S * D + (B * D if with_h0 else 0)) * a.element_size()
+            print(f"[time] {shape} {dname}: call {call_ms:.4f} ms, "
+                  f"torch.add(a, b, out=) {copy_ms:.4f} ms", flush=True)
             shapes.append(shape_row(shape, dname, ms, pms, None, nbytes,
-                                    2 * B * S * D, peak))
-            del a, b, h0, b0
+                                    2 * B * S * D, peak, call_ms=call_ms,
+                                    copy_ms=copy_ms, plan=plan, fill=fill))
+            del a, b, h0, b0, out
             torch.cuda.empty_cache()
     head = next(r for r in shapes if r["shape"].startswith("B6 falcon")
                 and r["dtype"] == "fp32")

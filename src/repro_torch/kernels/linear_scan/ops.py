@@ -24,8 +24,8 @@ def linear_scan(a: torch.Tensor, b: torch.Tensor,
     reference does (``b[:, 0] + a[:, 0] * h0``); the folded row is handed
     to the kernel beside b, so b is not copied.  ``block_d``/``block_s``
     are the TPU kernel's tile sizes, accepted for the reference's
-    signature.  Neither version reads them: the CUDA kernel runs one
-    thread per (batch, d) lane over the whole sequence, and the result
+    signature.  Neither version reads them: the CUDA kernel sizes its own
+    column tiles and ring of stages (``launch_plan``), and the result
     does not depend on the tiling."""
     b0 = None if h0 is None else fold_h0(a, b, h0)
     if on_cuda(a, "linear_scan"):
