@@ -41,8 +41,8 @@ class AnalogConfig:
     # gate-overdrive wordline biasing: nonzero normalized drives map into
     # [v_th/v_read, 1] so they clear the access transistor's cut-off
     wl_overdrive: bool = True
-    # device non-ideality scenario name; None = ideal corner (the only
-    # corner this port serves so far, ROADMAP A8)
+    # device non-ideality scenario name (repro_torch.nonideal registry);
+    # None = the ideal corner
     scenario: Optional[str] = None
 
 

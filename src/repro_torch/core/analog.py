@@ -1,5 +1,5 @@
 """AnalogExecutor: dense projections on emulated crossbar hardware (port of
-``repro.core.analog`` at the ideal corner).
+``repro.core.analog``).
 
 Weights are tiled onto differential 1T1R crossbars (``core.crossbar``);
 activations drive the wordlines dual-rail (v+ = relu(x), v- = relu(-x));
@@ -30,13 +30,24 @@ weights' repack per params binding; the per-block precompute
 call, as in the reference's serving trace -- inside B1's fp32 kernel on
 the card, in plain PyTorch on the CPU and in the bf16 mode.
 
-Not in this slice (each raises ``NotImplementedError`` naming its
-ROADMAP item): non-ideal corners, read noise, remapping and
-``deploy(...)`` (A8).
+Deployment model: everything that distinguishes a deployed device from
+the ideal hardware -- perturbed conductances, read sigma and key, the
+fault-remap permutation, hot-swapped emulator params, the scenario
+encoding a conditioned net consumes and the calibration affine -- is one
+``core.deployment.DeploymentState`` per call site, derived from the
+immutable spec ``deploy(scenario=, age=, remap=, params=, key=)`` builds
+and cached per (tag, plan, deployment).  Read noise is redrawn on every
+call from the state's read key (``nonideal.perturb.apply_read_noise`` on
+``gf``, then ``with_g``), so the same state reads the same draw; at
+sigma 0 it is the identity up to clamping cells into [g_min, g_max].
+``DeploymentState.ideal()`` reproduces the plain path bit for bit.  The
+mesh-sharded forward is not ported yet (ROADMAP A11).
 """
 from __future__ import annotations
 
 import contextlib
+import time
+import zlib
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -46,14 +57,27 @@ from repro_torch.configs.rram_ps32 import BlockGeometry, CASE_A
 from repro_torch.core import conv4xbar
 from repro_torch.core.analytic import analytic_block_response
 from repro_torch.core.circuit import CircuitParams, block_response
+from repro_torch.core import prng
 from repro_torch.core.crossbar import ConductancePlan, build_conductance_plan
-from repro_torch.core.deployment import DeploymentState
+from repro_torch.core.deployment import Deployment, DeploymentState
 from repro_torch.core.emulator import normalize_features
 from repro_torch.kernels.emulator_block import (emulator_block_grid,
                                                 emulator_block_unified)
 from repro_torch.kernels.emulator_block.ops import emulator_block
+from repro_torch.nonideal.lifetime import scenario_at_age
+from repro_torch.nonideal.perturb import (apply_read_noise, perturb_plan,
+                                          read_noise_draw, remap_plan,
+                                          scenario_circuit_params)
+from repro_torch.nonideal.scenario import (Scenario, get_scenario,
+                                           scenario_features,
+                                           scenario_features_tiled)
 
 BACKENDS = ("digital", "emulator", "circuit", "analytic")
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
 
 
 class _STMatmul(torch.autograd.Function):
@@ -63,7 +87,7 @@ class _STMatmul(torch.autograd.Function):
     def forward(ctx, ex: "AnalogExecutor", tag: str, x2: torch.Tensor,
                 w: torch.Tensor, st: DeploymentState):
         ctx.save_for_backward(x2, w)
-        plan = ex._plan_for(w, tag).with_g(ex._ideal_read(st.gf), ex.acfg) \
+        plan = ex._plan_for(w, tag).with_g(ex._read(st), ex.acfg) \
             .with_perm(st.out_perm)
         yv, xs = ex.raw_matmul(x2, w, tag, plan=plan,
                                eparams=st.eparams or None, sfeat=st.sfeat)
@@ -128,70 +152,276 @@ class _StateBinding:
         return ex.matmul(x, w, sk, state=st)
 
 
-def _not_ported(what: str, item: str):
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP {item}); "
-                               "the port serves the ideal corner only")
+_UNSET = object()
 
 
 class AnalogExecutor:
     """Serving executor for analog matmuls (see module docstring).
 
-    Owns, per weight ``tag``: the cached conductance plan and the ideal
-    ``DeploymentState``.  ``emulator_params`` are tensors on the device
-    the matmuls run on.  ``fast_path`` picks the emulator's route (see
-    the module docstring).  The reference's ``fused_emulator`` has no
-    counterpart: the port's slow path runs the paper-faithful network,
-    which the reference holds bit-equal to its fused rewrite."""
+    Owns, per weight ``tag``: the cached conductance plan and the
+    materialized device state of the active ``Deployment`` (an immutable
+    spec built by ``deploy``).  ``emulator_params`` are tensors on the
+    device the matmuls run on.  ``fast_path`` picks the emulator's route
+    (see the module docstring).  The reference's ``fused_emulator`` has
+    no counterpart: the port's slow path runs the paper-faithful network,
+    which the reference holds bit-equal to its fused rewrite.
+    ``materialize_s[tag]`` records the host seconds the last
+    materialization of the tag's device state took, and the remap's part
+    of them."""
 
     def __init__(self, acfg: AnalogConfig, geom: BlockGeometry = CASE_A,
                  cp: Optional[CircuitParams] = None,
                  emulator_params: Optional[dict] = None,
                  calibration: Optional[Dict[str, tuple]] = None,
-                 fast_path: bool = True):
+                 fast_path: bool = True,
+                 scenario: Optional[Scenario] = None,
+                 scenario_key=None, fault_remap: bool = False):
         if acfg.backend not in BACKENDS:
             raise ValueError(f"unknown analog backend {acfg.backend!r}")
-        if acfg.scenario:
-            raise _not_ported(f"scenario {acfg.scenario!r}", "A8")
         if acfg.backend == "emulator" and emulator_params is None:
             raise ValueError("the emulator backend needs Conv4Xbar params")
         self.acfg = acfg
         self.geom = geom
         self.cp = cp if cp is not None else CircuitParams()
-        self.emulator_params = emulator_params
+        self._base_params = emulator_params
         self.calibration: Dict[str, tuple] = dict(calibration or {})
         self.fast_path = fast_path
         self._plans: Dict[str, Tuple[torch.Tensor, ConductancePlan]] = {}
-        self._states: Dict[str, Tuple[ConductancePlan, DeploymentState]] = {}
+        # tag -> (plan, deployment, state, perturbed plan)
+        self._state_cache: Dict[str, tuple] = {}
         self._aux = None
         self._aux_src = None
         self._binding: Optional[_StateBinding] = None
         self._last_calib_n = 0
+        self._read_calls = 0
+        self._sfeat_ent: Optional[tuple] = None
+        self.materialize_s: Dict[str, Tuple[float, float]] = {}
+        if scenario is None and acfg.scenario:
+            scenario = get_scenario(acfg.scenario)
+        self._deployment = Deployment(
+            scenario=scenario,
+            key=prng.as_key(0 if scenario_key is None else scenario_key),
+            remap=fault_remap)
 
     # ------------------------------------------------------------------ #
-    def deploy(self, **kw):
-        raise _not_ported("deploy(...) (non-ideal corners, aging, remapping, "
-                          "hot-swapped params)", "A8")
+    # The immutable deployment
+    # ------------------------------------------------------------------ #
+    @property
+    def deployment(self) -> Deployment:
+        return self._deployment
 
+    @property
+    def scenario(self) -> Optional[Scenario]:
+        return self._deployment.scenario
+
+    @property
+    def scenario_key(self):
+        return self._deployment.key
+
+    @property
+    def fault_remap(self):
+        return self._deployment.remap
+
+    @property
+    def emulator_params(self) -> Optional[dict]:
+        """The deployment's hot-swapped params when set, else those bound
+        at construction."""
+        return (self._deployment.params if self._deployment.params is not None
+                else self._base_params)
+
+    def deploy(self, *, scenario=_UNSET, age: Optional[float] = None,
+               remap=_UNSET, params=_UNSET, key=None,
+               states=_UNSET) -> Deployment:
+        """Activate (and return) a new immutable deployment; only the
+        given fields change.  ``scenario=None`` clears the corner (a name
+        resolves through the registry); ``age`` rewrites the scenario's
+        ``drift_t`` (the fleet ages, it is not refabricated); ``remap`` is
+        the stuck-fault-aware remapping policy (True = instantaneous, a
+        sequence of ages in seconds = wear-aware); ``params`` hot-swaps
+        emulator params; ``key`` (an int seed, a ``torch.Generator``'s
+        seed or two key words) refabricates the fleet; ``states``
+        installs preloaded per-site states (``load_deployment``).
+        Invalidates the materialized device states and restarts the
+        read-cycle sequence."""
+        dep = self._deployment
+        sc = dep.scenario if scenario is _UNSET else scenario
+        if isinstance(sc, str):
+            sc = get_scenario(sc)
+        if age is not None:
+            if sc is None:
+                raise ValueError("deploy(age=...) needs a scenario to age")
+            sc = scenario_at_age(sc, age)
+        if remap is not _UNSET and isinstance(remap, (tuple, list)):
+            remap = tuple(float(t) for t in remap)
+        self._deployment = Deployment(
+            scenario=sc,
+            key=dep.key if key is None else prng.as_key(key),
+            remap=(dep.remap if remap is _UNSET
+                   else remap if isinstance(remap, tuple) else bool(remap)),
+            params=dep.params if params is _UNSET else params,
+            states=dep.states if states is _UNSET else states)
+        self._state_cache.clear()
+        self._sfeat_ent = None
+        self._read_calls = 0
+        return self._deployment
+
+    @property
+    def emulator_conditioned(self) -> bool:
+        """True when the bound emulator params are scenario-conditioned
+        (periph width > 2: fc0 has rows for ``scenario_features``)."""
+        return (self.emulator_params is not None
+                and conv4xbar.n_periph_of(self.emulator_params,
+                                          self.geom) > 2)
+
+    # ------------------------------------------------------------------ #
+    # Device-state materialization
+    # ------------------------------------------------------------------ #
+    def _scenario_features(self, device) -> torch.Tensor:
+        """The active scenario's encoding, once per Scenario object: the
+        per-tile ``(NB, NO, F)`` lattice for a tiled corner, else the
+        flat ``(F,)`` vector."""
+        sc = self.scenario
+        ent = self._sfeat_ent
+        if ent is None or ent[0] is not sc or ent[1].device != device:
+            v = (scenario_features_tiled(sc) if sc.tile_shape is not None
+                 else scenario_features(sc))
+            ent = (sc, v.to(device))
+            self._sfeat_ent = ent
+        return ent[1]
+
+    def _tag_key(self, tag: str):
+        """Per-tag device-draw key; crc32 keeps it stable across processes."""
+        return prng.fold_in(self.scenario_key,
+                            zlib.crc32(tag.encode()) & 0x7FFFFFFF)
+
+    def _next_read_key(self):
+        """A fresh key per read cycle; the sequence restarts at deploy()."""
+        k = prng.fold_in(prng.fold_in(self.scenario_key, 0x5245AD),
+                         self._read_calls)
+        self._read_calls += 1
+        return k
+
+    def _materialize(self, tag: str, w: torch.Tensor) -> tuple:
+        """``(plan, deployment, state, perturbed plan)`` for ``(tag, w)``:
+        the scenario's perturbation (and, under ``remap``, the
+        stuck-fault-aware permutation) drawn once per (tag, plan,
+        deployment) and cached, at unit affine with a placeholder read
+        key (``state_for`` stamps the serving ones)."""
+        dep = self._deployment
+        plan = self._plan_for(w, tag)
+        ent = self._state_cache.get(tag) if tag else None
+        if ent is not None and ent[0] is plan and ent[1] is dep:
+            return ent
+        sc = dep.scenario
+        ep = (self.emulator_params if self.acfg.backend == "emulator"
+              else None)
+        dev = plan.g_feat.device
+        with torch.no_grad():
+            if sc is None or sc.is_ideal:
+                st = DeploymentState.ideal(plan, eparams=ep)
+                pplan = plan.with_perm(st.out_perm)
+            else:
+                t0 = time.perf_counter()
+                key = self._tag_key(tag)
+                base, operm = plan, torch.arange(plan.N, device=dev)
+                if dep.remap and sc.has_stuck_off:
+                    hz = dep.remap if isinstance(dep.remap, tuple) else None
+                    base, operm = remap_plan(plan, self.acfg, sc, key,
+                                             horizon=hz)
+                _sync(dev)
+                t_remap = time.perf_counter() - t0
+                pplan = perturb_plan(base, self.acfg, sc, key).with_perm(operm)
+                rs = sc.read_sigma
+                rsig = (rs.to(dev, torch.float32) if isinstance(rs, torch.Tensor)
+                        else torch.tensor(rs, dtype=torch.float32, device=dev))
+                sfeat = (self._scenario_features(dev)
+                         if self.acfg.backend == "emulator"
+                         and self.emulator_conditioned else None)
+                st = DeploymentState.ideal(plan, eparams=ep).replace(
+                    gf=pplan.g_feat.float(),
+                    read_sigma=rsig.expand(plan.NB, plan.NO).contiguous(),
+                    out_perm=operm,
+                    **({} if sfeat is None else {"sfeat": sfeat}))
+                st.known_noise(sc.has_read_noise)
+                _sync(dev)
+                self.materialize_s[tag] = (time.perf_counter() - t0, t_remap)
+        ent = (plan, dep, st, pplan)
+        if tag:
+            self._state_cache[tag] = ent
+        return ent
+
+    def _base_state(self, tag: str, w: torch.Tensor) -> DeploymentState:
+        """The deployment's device state for ``(tag, w)`` at unit affine."""
+        return self._materialize(tag, w)[2]
+
+    def _scenario_plan(self, tag: str, w: torch.Tensor) -> ConductancePlan:
+        """The perturbed (and remapped) plan of ``_base_state``."""
+        return self._materialize(tag, w)[3]
+
+    def state_for(self, tag: str, w: torch.Tensor) -> DeploymentState:
+        """The ready-to-serve state for ``(tag, w)``: the cached device
+        state stamped with the tag's calibration affine and, when the
+        corner draws read noise, a fresh read-cycle key.  Preloaded
+        states (``deploy(states=...)``) are served verbatim."""
+        dep = self._deployment
+        if dep.states is not None and tag in dep.states:
+            return dep.states[tag]
+        st = self._base_state(tag, w)
+        a, b = self.calibration.get(tag, (1.0, 0.0))
+        st = st.with_calibration(a, b)
+        if dep.scenario is not None and dep.scenario.has_read_noise:
+            st = st.with_read_key(self._next_read_key())
+        return st
+
+    def _read(self, st: DeploymentState) -> torch.Tensor:
+        """One read cycle of the state's conductances: the read-noise draw
+        of ``st.read_key`` applied to ``gf``.  Without read noise the draw
+        is skipped -- the result is the same, the identity up to clamping
+        the cells (g > 0) into [g_min, g_max], which a bf16 weight's
+        rounded conductances can leave."""
+        g = st.gf
+        if not st.has_read_noise:
+            return torch.where(g > 0.0, torch.clamp(g, self.acfg.g_min,
+                                                    self.acfg.g_max), g)
+        eps = read_noise_draw(g.shape, st.read_key, g.device)
+        return apply_read_noise(g, self.acfg, st.read_sigma, eps)
+
+    def _cp_effective(self) -> CircuitParams:
+        """CircuitParams with the scenario's line-resistance scaling."""
+        if self.scenario is not None:
+            return scenario_circuit_params(self.cp, self.scenario)
+        return self.cp
+
+    # ------------------------------------------------------------------ #
     @torch.no_grad()
     def calibrate(self, xc: torch.Tensor, w: torch.Tensor, tag: str,
-                  warm_start: bool = False) -> Tuple[float, float]:
+                  warm_start: bool = False,
+                  noise_draws: int = 4) -> Tuple[float, float]:
         """Fit the per-layer affine volts->logical map against digital on
         the probe matrix ``xc`` (n, K), through the same forward the
-        tag's matmuls run, at unit affine.
+        tag's matmuls run, on the deployment's device state at unit
+        affine.
 
         The reference draws ``xc`` itself (``normal * 0.5``, 256 rows
         cold, 128 warm); here the caller passes it, so both packages can
-        fit on the same probes.  Read noise is not ported (A8), so one
-        draw is the expected transfer.  ``warm_start=True`` transfers
-        the previous affine: a ridge prior toward it, one synthetic row
-        per parameter weighted at ~5% of the probes' leverage on that
-        parameter (sum yv^2 for the scale, the row count for the
-        offset); without a previous affine the fit is cold.  The probe
-        count used is recorded in ``_last_calib_n``."""
+        fit on the same probes.  Noise-aware: under a corner with read
+        noise the response is averaged over ``noise_draws`` read cycles,
+        so the affine targets the expected transfer.  ``warm_start=True``
+        transfers the previous affine: a ridge prior toward it, one
+        synthetic row per parameter weighted at ~5% of the probes'
+        leverage on that parameter (sum yv^2 for the scale, the row
+        count for the offset); without a previous affine the fit is
+        cold.  The probe count used is recorded in ``_last_calib_n``."""
         prev = self.calibration.get(tag) if warm_start else None
         xc = xc.float()
         st = self._base_state(tag, w)         # unit affine by construction
-        ys = _STMatmul.apply(self, tag, xc, w, st)
+        sc = self.scenario
+        draws = (max(1, noise_draws)
+                 if sc is not None and sc.has_read_noise else 1)
+        keys = prng.split(prng.fold_in(self.scenario_key, 0xCA11B), draws)
+        ys = torch.stack([_STMatmul.apply(self, tag, xc, w,
+                                          st.with_read_key(k))
+                          for k in keys]).mean(dim=0)
         xs = torch.clamp_min(torch.max(torch.abs(xc)), 1e-9)
         yv_flat = (ys / xs).reshape(-1)
         yd_flat = ((xc @ w.float()) / xs).reshape(-1)
@@ -232,29 +462,6 @@ class AnalogExecutor:
             self._aux_src = params
         return self._aux
 
-    def _base_state(self, tag: str, w: torch.Tensor) -> DeploymentState:
-        """The ideal state for ``(tag, w)`` at unit affine, cached per plan."""
-        plan = self._plan_for(w, tag)
-        ent = self._states.get(tag)
-        if ent is None or ent[0] is not plan:
-            ep = self.emulator_params if self.acfg.backend == "emulator" else None
-            ent = (plan, DeploymentState.ideal(plan, eparams=ep))
-            self._states[tag] = ent
-        return ent[1]
-
-    def state_for(self, tag: str, w: torch.Tensor) -> DeploymentState:
-        """The ideal state for ``(tag, w)``, stamped with the tag's
-        calibration affine (unit by default)."""
-        a, b = self.calibration.get(tag, (1.0, 0.0))
-        return self._base_state(tag, w).with_calibration(a, b)
-
-    def _ideal_read(self, g: torch.Tensor) -> torch.Tensor:
-        """The reference's read-noise draw at sigma 0: an exact identity
-        up to clamping the cells (g > 0) into [g_min, g_max], which a bf16
-        weight's rounded conductances can leave."""
-        return torch.where(g > 0.0, torch.clamp(g, self.acfg.g_min,
-                                                self.acfg.g_max), g)
-
     def _drive01(self, u01: torch.Tensor) -> torch.Tensor:
         """Gate-overdrive wordline biasing: nonzero drives map into
         [v_th/v_read, 1]; zero stays exactly zero (the dual-rail delta
@@ -274,7 +481,7 @@ class AnalogExecutor:
         backend on raw-feature block tensors; ``eparams`` overrides the
         executor's emulator params."""
         b = self.acfg.backend
-        cp = self.cp
+        cp = self._cp_effective()
         if b == "circuit":
             return lambda x, p: block_response(x, cp, p)
         if b == "analytic":
@@ -338,15 +545,40 @@ class AnalogExecutor:
 
     def raw_matmul(self, x2d: torch.Tensor, w: torch.Tensor, tag: str = "",
                    plan: Optional[ConductancePlan] = None,
+                   read_key=None, read_sigma=None,
                    eparams: Optional[dict] = None,
                    sfeat: Optional[torch.Tensor] = None
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Analog forward for (B,K) @ (K,N), in volts (uncalibrated), and
-        the drive scale ``max|x|`` of the whole call."""
+        the drive scale ``max|x|`` of the whole call.
+
+        ``plan`` overrides the tag's plan (the forward passes the
+        deployment state's perturbed, possibly remapped, read plan); with
+        ``plan=None`` and an active corner the tag's cached device draw is
+        used, with the next read cycle's noise and, for a conditioned
+        net, the corner's features.  ``read_key``/``read_sigma`` add one
+        read-noise draw on top of the plan in effect.  ``sfeat`` is the
+        scenario encoding a conditioned emulator consumes: a per-tile
+        ``(NB, NO, F)`` lattice becomes one fc0 shift per block, in
+        lattice order."""
         if self.acfg.backend == "digital":
             raise ValueError("the digital backend has no analog forward")
         if plan is None:
             plan = self._plan_for(w, tag)
+            sc = self.scenario
+            if sc is not None and not sc.is_ideal:
+                plan = self._scenario_plan(tag, w)
+                if read_key is None and sc.has_read_noise:
+                    read_key, read_sigma = self._next_read_key(), sc.read_sigma
+                if sfeat is None and self.acfg.backend == "emulator" \
+                        and eparams is None and self.emulator_conditioned:
+                    sfeat = self._scenario_features(plan.g_feat.device)
+        if read_key is not None:
+            g = plan.g_feat.float()
+            eps = read_noise_draw(g.shape, read_key, g.device)
+            plan = plan.with_g(apply_read_noise(
+                g, self.acfg, 0.0 if read_sigma is None else read_sigma,
+                eps), self.acfg)
         B = x2d.shape[0]
         x2d = x2d.float()
         x_scale = torch.clamp_min(torch.max(torch.abs(x2d)), 1e-9)
@@ -355,6 +587,8 @@ class AnalogExecutor:
             shift = None
             if sfeat is not None and "f0_scen" in aux:
                 shift = sfeat @ aux["f0_scen"]
+                if shift.dim() == 3:
+                    shift = shift.reshape(-1, shift.shape[-1])
             u = plan.tile_v(self._drive01(torch.abs(x2d) / x_scale), 1.0)
             pos = plan.tile_v((x2d > 0).float(), 1.0)
             y2 = emulator_block_unified(aux, plan.g_norm.contiguous(),

@@ -9,9 +9,11 @@
   ``save_emulator_npz`` -- the emulator format the reference's serve CLI
   loads: one array per ``conv{i}_w/_b``, ``fc{i}_w/_b`` and ``_meta``;
   keys starting with ``__`` are skipped on load.
-
-Loading the reference's deployment npz waits for the non-ideal slice
-(ROADMAP A1/A8).
+* ``deployment_from_numpy`` / ``load_deployment_npz`` /
+  ``save_deployment_npz`` -- the reference's deployment npz
+  (``<tag>::<field>``, ``__eparams::<k>``, ``__deployment_spec``): the
+  realized per-site device states (``gf``, ``out_perm``, ``sfeat``, read
+  sigma and key, the affine) and the spec, read by either package.
 """
 from __future__ import annotations
 
@@ -21,6 +23,9 @@ import numpy as np
 import torch
 
 from repro_torch import DeviceLike, resolve_device
+from repro_torch.core.deployment import load_deployment as load_deployment_npz
+from repro_torch.core.deployment import save_deployment as save_deployment_npz
+from repro_torch.core.deployment import states_from_numpy as deployment_from_numpy
 
 
 def tensor_from_numpy(a, device: DeviceLike = None) -> torch.Tensor:
@@ -68,3 +73,4 @@ def load_emulator_npz(path: str, device: DeviceLike = None
 def save_emulator_npz(path: str, params: Dict[str, torch.Tensor]) -> str:
     np.savez(path, **{k: tensor_to_numpy(v) for k, v in params.items()})
     return path
+

@@ -13,13 +13,27 @@ the reference's tiny same-family config; ``--layers`` alone keeps the
 full widths and cuts the depth.  ``--analog-backend`` is ``digital``,
 ``emulator`` (needs ``--emulator-params``), ``analytic`` or ``circuit``.
 
+Under a device corner (``nonideal``):
+
+  python -m repro_torch.launch.serve --arch gemma3-1b --layers 2 \
+      --analog-backend emulator --emulator-params emulator.npz \
+      --scenario stressed --fault-remap --state-save dep.npz
+
+``--scenario`` names a registered corner, ``--age`` ages it,
+``--fault-remap`` remaps output columns off its stuck-off cells,
+``--conditioned-emulator`` requires a scenario-conditioned net, and
+``--state-save`` / ``--state-load`` write / serve the per-site device
+states in the reference's deployment npz.  ``--analog-layers`` (a
+port-only option, default ``mlp``) picks the projections that run
+analog: a tiled corner needs sites that share one tile lattice (e.g.
+``mlp.up,mlp.gate``).
+
 ``ServeSession`` builds the model once, discovers every analog dense()
 call site (keys ``"<tag>#<ordinal>"`` for tail layers and
 ``"dec.<period>:<tag>#<ordinal>"`` for stacked periods, as in the
-reference) and serves each site with its ``DeploymentState``.  This
-slice serves the ideal corner; the reference's scenario, aging, remap,
-state save/load, mesh and telemetry flags raise ``NotImplementedError``
-naming their ROADMAP item.
+reference) and serves each site with its ``DeploymentState``.  The
+reference's mesh, device-count and telemetry flags raise
+``NotImplementedError`` naming their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -111,6 +125,7 @@ class ServeSession:
         self._prefill_step = S.make_prefill_step(cfg, pcfg)
         self._decode_step = S.make_decode_step(cfg, pcfg)
         self._sites: Optional[Dict[str, torch.Tensor]] = None
+        self._last_states: Optional[dict] = None
 
     # ------------------------------------------------------------------ #
     def sites(self) -> Dict[str, torch.Tensor]:
@@ -134,6 +149,13 @@ class ServeSession:
     def states(self) -> Dict[str, object]:
         """One ``DeploymentState`` per call site."""
         return {sk: self.ex.state_for(sk, w) for sk, w in self.sites().items()}
+
+    def save_deployment(self, path: str) -> str:
+        """Write the last-served (or current) per-site states and the
+        deployment spec to npz (``serve --state-save``)."""
+        from repro_torch.core.deployment import save_deployment
+        states = self._last_states if self._last_states else self.states()
+        return save_deployment(path, states, self.ex.deployment)
 
     def _bound(self, states):
         if self.ex is None:
@@ -162,6 +184,7 @@ class ServeSession:
         from repro_torch.models import model as M
         if states is None:
             states = self.states() if self.ex is not None else {}
+        self._last_states = states
         B, P, G = self.B, self.P, self.G
         dev = self.device
 
@@ -196,12 +219,7 @@ class ServeSession:
 # --------------------------------------------------------------------------- #
 # CLI
 # --------------------------------------------------------------------------- #
-_NOT_PORTED = {
-    "scenario": "A8", "age": "A8", "fault_remap": "A8",
-    "conditioned_emulator": "A8", "state_save": "A1/A8",
-    "state_load": "A1/A8", "mesh": "A11", "telemetry": "A10",
-    "devices": "A11",
-}
+_NOT_PORTED = {"mesh": "A11", "telemetry": "A10", "devices": "A11"}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -226,13 +244,28 @@ def build_parser() -> argparse.ArgumentParser:
                     help="npz with Conv4Xbar params (the reference's "
                          "emulator cache format); required for "
                          "--analog-backend=emulator")
+    ap.add_argument("--analog-layers", default="mlp",
+                    help="comma-separated tag prefixes of the projections "
+                         "that run analog (default: mlp)")
+    ap.add_argument("--scenario", default=None,
+                    help="registered device corner (repro_torch.nonideal; "
+                         "e.g. stressed); needs a non-digital backend")
+    ap.add_argument("--age", type=float, default=None,
+                    help="seconds since the fleet was programmed: ages the "
+                         "scenario's drift_t")
+    ap.add_argument("--fault-remap", action="store_true",
+                    help="stuck-fault-aware column remapping (needs "
+                         "--scenario)")
+    ap.add_argument("--conditioned-emulator", action="store_true",
+                    help="require --emulator-params to hold a scenario-"
+                         "conditioned Conv4Xbar (periph width 2 + 13)")
+    ap.add_argument("--state-save", default=None, metavar="NPZ",
+                    help="after serving, write the per-site device states "
+                         "and the spec to this npz")
+    ap.add_argument("--state-load", default=None, metavar="NPZ",
+                    help="serve the per-site device states of a deployment "
+                         "npz (either package's) verbatim")
     # reference flags whose subsystems are not ported yet
-    ap.add_argument("--scenario", default=None)
-    ap.add_argument("--age", type=float, default=None)
-    ap.add_argument("--fault-remap", action="store_true")
-    ap.add_argument("--conditioned-emulator", action="store_true")
-    ap.add_argument("--state-save", default=None)
-    ap.add_argument("--state-load", default=None)
     ap.add_argument("--mesh", default=None)
     ap.add_argument("--telemetry", nargs="?", const="-", default=None)
     ap.add_argument("--devices", type=int, default=0)
@@ -241,14 +274,26 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv: Optional[List[str]] = None):
     """Parse ``argv``, serve, print the timings; returns (session, output)."""
-    args = build_parser().parse_args(argv)
+    ap = build_parser()
+    args = ap.parse_args(argv)
     for flag, item in _NOT_PORTED.items():
         if getattr(args, flag) not in (None, False, 0):
             raise NotImplementedError(
                 f"--{flag.replace('_', '-')} is not ported yet "
-                f"(ROADMAP {item}); this slice serves the ideal corner")
+                f"(ROADMAP {item})")
+    if args.scenario and args.analog_backend == "digital":
+        ap.error("--scenario requires a non-digital --analog-backend")
+    if (args.fault_remap or args.age is not None) and not args.scenario:
+        ap.error("--fault-remap / --age require --scenario")
+    if args.conditioned_emulator and args.analog_backend != "emulator":
+        ap.error("--conditioned-emulator requires --analog-backend=emulator")
+    if (args.state_save or args.state_load) \
+            and args.analog_backend == "digital":
+        ap.error("--state-save/--state-load require a non-digital "
+                 "--analog-backend")
     device = resolve_device(args.device)
     ex = None
+    loaded_states = None
     if args.analog_backend != "digital":
         from repro_torch.configs.base import AnalogConfig
         from repro_torch.configs.rram_ps32 import CASE_A
@@ -260,22 +305,54 @@ def main(argv: Optional[List[str]] = None):
                 raise SystemExit("--analog-backend=emulator needs "
                                  "--emulator-params <npz>")
             eparams = load_emulator_npz(args.emulator_params, device)
+        layers = tuple(l for l in args.analog_layers.split(",") if l)
         ex = AnalogExecutor(
             acfg=AnalogConfig(enabled=True, backend=args.analog_backend,
-                              layers=("mlp",)),
+                              layers=layers),
             geom=CASE_A, emulator_params=eparams)
+        if args.conditioned_emulator:
+            from repro_torch.nonideal import (N_SCENARIO_FEATURES,
+                                              SCENARIO_FEATURE_NAMES)
+            if not ex.emulator_conditioned:
+                raise SystemExit(
+                    "--conditioned-emulator: the params are not scenario-"
+                    f"conditioned (periph width must be 2 + "
+                    f"{N_SCENARIO_FEATURES}; train with "
+                    "nonideal.train_conditioned_emulator)")
+            print(f"conditioned emulator: {N_SCENARIO_FEATURES} scenario "
+                  f"features ({', '.join(SCENARIO_FEATURE_NAMES[:4])}, ...)")
+        if args.state_load:
+            from repro_torch.core.deployment import load_deployment
+            loaded_states, dep = load_deployment(args.state_load, device)
+            ex.deploy(scenario=dep.scenario, key=dep.key, remap=dep.remap,
+                      states=dep.states)
+            print(f"deployment restored: {len(loaded_states)} call sites "
+                  f"from {args.state_load}")
+        elif args.scenario:
+            from repro_torch.core import prng
+            from repro_torch.nonideal import get_scenario
+            ex.deploy(scenario=get_scenario(args.scenario), age=args.age,
+                      remap=args.fault_remap,
+                      key=prng.fold_in(prng.key(args.seed), 0xDEF))
+            print(f"analog scenario: {ex.scenario.name}"
+                  f"{'' if args.age is None else f' at age {args.age:g} s'}"
+                  f"{', fault remap' if args.fault_remap else ''}")
     sess = ServeSession(args.arch, reduced=args.reduced,
                         reduced_layers=args.layers, batch=args.batch,
                         prompt_len=args.prompt_len, gen=args.gen,
                         temperature=args.temperature, seed=args.seed,
                         executor=ex, device=device)
-    out = sess.generate()
+    out = sess.generate(states=loaded_states)
     B, P, G = args.batch, args.prompt_len, args.gen
     print(f"prefill {B}x{P}: {out['prefill_s'] * 1e3:.1f} ms "
           f"({B * P / out['prefill_s']:.0f} tok/s)")
     print(f"decode  {G - 1} steps: {out['decode_s'] * 1e3:.1f} ms "
           f"({B * (G - 1) / max(out['decode_s'], 1e-9):.0f} tok/s)")
     print("sample tokens[0]:", out["tokens"][0, :12].tolist())
+    if args.state_save:
+        path = sess.save_deployment(args.state_save)
+        print(f"deployment saved: {len(sess._last_states)} call sites "
+              f"-> {path}")
     return sess, out
 
 

@@ -111,11 +111,15 @@ def test_hook_routes_mlp_sites_and_keys_them_like_the_reference():
 
 
 def test_unported_corners_raise():
+    """Non-ideal corners are ported (``tests/test_torch_nonideal.py``):
+    ``deploy`` and a config's scenario name now resolve through the
+    registry; unknown backends and names still raise."""
     _, ex = _executors("A")
-    with pytest.raises(NotImplementedError, match="A8"):
-        ex.deploy(scenario="stressed")
-    with pytest.raises(NotImplementedError, match="A8"):
-        AnalogExecutor(AnalogConfig(backend="digital", scenario="stressed"))
+    assert ex.deploy(scenario="stressed").scenario.name == "stressed"
+    assert AnalogExecutor(AnalogConfig(backend="digital", scenario="stressed")
+                          ).scenario.name == "stressed"
+    with pytest.raises(KeyError, match="unknown scenario"):
+        ex.deploy(scenario="no_such_corner")
     with pytest.raises(ValueError, match="unknown analog backend"):
         AnalogExecutor(AnalogConfig(backend="spice"))
     with pytest.raises(ValueError, match="no analog forward"):

@@ -89,7 +89,7 @@ def test_entry_point_refuses_other_devices():
         linear_scan(meta, meta)
 
 
-# (B, S, D): chip_smoke.py's phase-7 shapes (falcon-mamba-7b's scan state,
+# (B, S, D): chip_smoke.py's phase-8 shapes (falcon-mamba-7b's scan state,
 # recurrentgemma-2b's RG-LRU, the ragged ones), this file's, and small
 # ones: B*D below a warp, S = 1, S not a multiple of any R, odd pitches
 PLAN_SHAPES = [(1, 2048, 131072), (4, 2048, 2560), (3, 37, 1000),

@@ -170,12 +170,20 @@ def test_serve_session_end_to_end_bf16(backend):
 
 
 def test_serve_cli_flags_of_unported_subsystems_raise():
+    """Only the mesh, device-count and telemetry flags are unported; the
+    non-ideal flags are ported and keep the reference's argument checks
+    (``tests/test_torch_deployment.py`` serves them)."""
     from repro_torch.launch import serve
-    for flag in (["--scenario", "stressed"], ["--mesh", "1,2"],
-                 ["--state-save", "x.npz"], ["--telemetry"]):
+    base = ["--arch", "gemma3-1b", "--reduced", "--device", "cpu"]
+    for flag in (["--mesh", "1,2"], ["--telemetry"], ["--devices", "2"]):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            serve.main(["--arch", "gemma3-1b", "--reduced", "--device", "cpu",
-                        *flag])
+            serve.main(base + flag)
+    assert sorted(serve._NOT_PORTED) == ["devices", "mesh", "telemetry"]
+    for flag in (["--scenario", "stressed"], ["--fault-remap"],
+                 ["--age", "10"], ["--conditioned-emulator"],
+                 ["--state-save", "x.npz"], ["--state-load", "x.npz"]):
+        with pytest.raises(SystemExit):          # argparse's error exit
+            serve.main(base + flag)
 
 
 def test_entry_points_refuse_the_cpu_unless_asked():
@@ -207,7 +215,10 @@ print('MISSING', [m for m in NEW if m not in sys.modules])
 """
     new = ["repro_torch.core." + m for m in ("circuit", "analytic", "theory",
                                               "emulator")]
-    new += ["repro_torch.launch.quickstart",
+    new += ["repro_torch.nonideal." + m for m in ("scenario", "perturb",
+                                                  "lifetime", "data")]
+    new += ["repro_torch.nonideal", "repro_torch.core.prng",
+            "repro_torch.core.deployment", "repro_torch.launch.quickstart",
             "repro_torch.kernels.emulator_block.ops",
             "repro_torch.kernels._build"]
     new += [f"repro_torch.kernels.{k}.{m}"

@@ -21,7 +21,7 @@ Builds, from ``src/repro_torch/kernels/linear_scan/csrc/linear_scan.cu``:
 Other column widths C, stage heights R and ring depths K are launch
 arguments of the kept build (``plans`` below).  Prints each build's
 ptxas lines, holds every build and plan bit for bit against the plain
-version (``torch.equal``) at chip_smoke.py's phase-7 B6 cases (timing
+version (``torch.equal``) at chip_smoke.py's phase-8 B6 cases (timing
 the kept kernel against the parent's there, in turns, launched one by
 one and replayed from a CUDA graph, which leaves the host's launch
 overhead out), then times, the versions taking turns (median of 5 event
