@@ -127,7 +127,8 @@ B3_CASES = [
 # of one block; block_n 3, 7 and 32 and the default rule's tiles (N = 5,000
 # and 65,536) are not whole passes; N = 3,001 with block_n 3 launches more
 # thread blocks than the card keeps resident; P = 40 reads periph features
-# past one warp's 32
+# past one warp's 32; CASE_A P = 15 at N = 5,000 is the shape of phase 7's
+# conditioned-net evaluations (its test set)
 B2_CASES = [
     ("A P=2 N%bn", "A", 2, 1001, 32), ("A no periph", "A", 0, 64, None),
     ("A P=15", "A", 15, 77, 8), ("B P=2 N%bn", "B", 2, 515, 16),
@@ -136,7 +137,8 @@ B2_CASES = [
     ("B P=15 N=17", "B", 15, 17, None), ("A P=15 N=37 bn=3", "A", 15, 37, 3),
     ("B P=2 N=100 bn=7", "B", 2, 100, 7), ("A P=2 N=3001 bn=3", "A", 2, 3001, 3),
     ("A P=40 N=50", "A", 40, 50, None), ("A P=2 N=5000", "A", 2, 5000, None),
-    ("B P=15 N=5000", "B", 15, 5000, None), ("A P=2 N=65536", "A", 2, 65536, None)]
+    ("B P=15 N=5000", "B", 15, 5000, None), ("A P=15 N=5000", "A", 15, 5000, None),
+    ("A P=2 N=65536", "A", 2, 65536, None)]
 # B2's kernel per geometry, as ptxas names its template instances
 B2_TEMPLATES = {"CASE_A": "block_warp_kernelILi4ELi2ELi1E",
                 "CASE_B": "block_warp_kernelILi2ELi8ELi4E"}
@@ -917,10 +919,12 @@ def main() -> None:
               b2_launches, max(max_abs["B2"], ni["b2_err"]), b2_shapes[-1],
               b2_shapes, nonideal_launches={
                   "conditioned_training": ni["b2_train"],
-                  "slow_path_stressed": ni["b2"]}),
+                  "slow_path_stressed": ni["b2"]},
+              slow_vs_fast_volts_err=ni["b2_slow_err"]),
         entry("emulator_block_grid", src + "emulator_block.cu", ebk + "137",
               b3_launches, max(max_abs["B3"], ni["b3_err"]), b3_shapes[0],
-              b3_shapes, nonideal_launches={"slow_path_stressed": ni["b3"]}),
+              b3_shapes, nonideal_launches={"slow_path_stressed": ni["b3"]},
+              slow_vs_fast_volts_err=ni["b3_slow_err"]),
         b4, b5, b6,
     ]
     print(f"[done] {time.perf_counter() - t_start:.1f} s", flush=True)
@@ -1017,10 +1021,15 @@ def nonideal_phase(dev, card, npz, trained, ideal_ms):
     just before, read just after).  Then the checks on the card: B1
     against its plain version on each run's full-width ``mlp.up`` state
     (one read draw given to both), the conditioned net at the ideal
-    corner bit-equal to the same net with no shift, and the slow path
-    (B3 for the plain net, B2 at P = 15 for the conditioned one) against
-    the fast path on the calibrated bench matmul under ``stressed``, one
-    read draw given to both.  Returns the launch counts and the errors."""
+    corner bit-equal to the same net with no shift, B2 against its plain
+    version on the conditioned net's test blocks (the shape its training
+    evaluations ran at), and the slow path (B3 for the plain net, B2 at
+    P = 15 for the conditioned one) against the fast path on the
+    calibrated bench matmul under ``stressed``, one read draw given to
+    both, with each slow-path kernel call held against its plain version
+    on the inputs the path gave it.  Returns the launch counts and the
+    errors: ``b*_err`` of each kernel against its plain version,
+    ``b*_slow_err`` of the slow path against the fast path."""
     import dataclasses
     import numpy as np
     import torch
@@ -1040,7 +1049,7 @@ def nonideal_phase(dev, card, npz, trained, ideal_ms):
     build = ROOT / "build"
     t_phase = time.perf_counter()
     out = {"b1": {}, "b1_err": 0.0, "b2": 0, "b3": 0, "b2_err": 0.0,
-           "b3_err": 0.0}
+           "b3_err": 0.0, "b2_slow_err": 0.0, "b3_slow_err": 0.0}
     common = ["--arch", "gemma3-1b", "--layers", "2", "--batch", "4",
               "--prompt-len", "32", "--gen", "8", "--seed", "0",
               "--analog-backend", "emulator"]
@@ -1089,23 +1098,32 @@ def nonideal_phase(dev, card, npz, trained, ideal_ms):
             fail(f"{label}: tokens shape {res['tokens'].shape} != (4, 8)")
 
     def read_cost(label, sess):
-        """The ms the per-call read-noise redraw and ``with_g`` add to a
-        decode step: every analog site's read of its state, noisy
-        against the same state without read noise (the clamp only)."""
+        """The ms one read of every analog site's state (the read-noise
+        redraw and ``with_g``) takes, noisy against the same state without
+        read noise (the clamp only).  The executor keeps the read plan
+        while the state stays (``_read_plan``), so a generate pays it once,
+        at its first forward, and a decode step reuses it: checked here
+        on the sites' cached read plans."""
         ex = sess.ex
         pairs = [(ex._plan_for(w, s), sess._last_states[s])
                  for s, w in sess.sites().items()]
+        kept = sum(ex._read_cache[s][1] is sess._last_states[s]
+                   for s in sess.sites())
+        if kept != len(pairs):
+            fail(f"{label}: {len(pairs) - kept} sites served without their "
+                 f"state's kept read plan")
         quiet = [(p, st.replace(read_sigma=torch.zeros_like(st.read_sigma)))
                  for p, st in pairs]
         noisy_ms, quiet_ms = paired_ms(
             [lambda: [p.with_g(ex._read(st), ex.acfg) for p, st in pairs],
              lambda: [p.with_g(ex._read(st), ex.acfg) for p, st in quiet]],
             iters=5, reps=5)
-        print(f"[nonideal] {label}: read of {len(pairs)} sites a step (the "
-              f"redraw and with_g) {noisy_ms:.3f} ms with read noise, "
-              f"{quiet_ms:.3f} ms without (clamp and with_g): the redraw adds "
-              f"{noisy_ms - quiet_ms:.3f} ms a decode step [{card}]",
-              flush=True)
+        print(f"[nonideal] {label}: read of {len(pairs)} sites (the redraw "
+              f"and with_g) {noisy_ms:.3f} ms with read noise, "
+              f"{quiet_ms:.3f} ms without (clamp and with_g), paid once a "
+              f"generate: the redraw adds {noisy_ms - quiet_ms:.3f} ms to the "
+              f"first forward and none to a decode step, whose {kept} sites "
+              f"reuse their kept read plans [{card}]", flush=True)
         return noisy_ms, quiet_ms
 
     # -- the ideal serve again, warm, as the baseline of this phase ---------
@@ -1164,6 +1182,7 @@ def nonideal_phase(dev, card, npz, trained, ideal_ms):
         r = gen_data(*a, **k)
         torch.cuda.synchronize()
         times["label"] = time.perf_counter() - t
+        times["data"] = r
         return r
 
     tcfg = EmulatorTrainConfig(
@@ -1194,6 +1213,17 @@ def nonideal_phase(dev, card, npz, trained, ideal_ms):
         fail(f"the conditioned net has P={npf}, test MSE {cres.test_mse}")
     if b2_train != len(cres.history["epoch"]) + 1:
         fail(f"B2 launched {b2_train} times in conditioned training")
+    # B2 against its plain version on the test blocks the evaluations
+    # above ran on (CASE_A, P = 15, N = n_test), with the trained net
+    X, Pf, _ = times.pop("data")
+    xte, pte = X[tcfg.n_train:], Pf[tcfg.n_train:]
+    got = eb.emulator_block_cuda(cond, xte, pte, CASE_A)
+    torch.cuda.synchronize()
+    want = eb.emulator_block_plain(cond, xte, pte)
+    out["b2_err"] = max(out["b2_err"], compare(
+        f"B2 conditioned net's test blocks, CASE_A P={pte.shape[1]} "
+        f"N={xte.shape[0]}", got, want))
+    del X, Pf, xte, pte, got, want
     cnpz = build / "chip_smoke_conv4xbar_a_conditioned.npz"
     save_emulator_npz(str(cnpz), cond)
     # the tiled corner on mlp.up/gate's lattice: stressed, each tile its
@@ -1266,6 +1296,20 @@ def nonideal_phase(dev, card, npz, trained, ideal_ms):
     xin = torch.randn((16, 512), generator=gs, device=dev) * 0.5
     xc = torch.randn((256, 512), generator=gs, device=dev) * 0.5
     base = AnalogConfig()
+    # the slow path's kernel calls, recorded with their inputs and outputs
+    # through the executor's names for the two entry points
+    import repro_torch.core.analog as analog_mod
+    entry_fns = {n: getattr(analog_mod, n)
+                 for n in ("emulator_block", "emulator_block_grid")}
+    seen = []
+
+    def recorded(n):
+        def call(*a, **k):
+            y = entry_fns[n](*a, **k)
+            seen.append((n, a, k, y))
+            return y
+        return call
+
     for name, params, key in (("plain net (B3)", trained, "b3"),
                               ("conditioned net (B2, P=15)", cond, "b2")):
         exf = AnalogExecutor(base, geom=CASE_A, cp=cp, emulator_params=params)
@@ -1280,12 +1324,18 @@ def nonideal_phase(dev, card, npz, trained, ideal_ms):
         # one read cycle of the state's conductances, given to both paths;
         # the gate holds the volts (raw_matmul), as phase 6 does, and the
         # calibrated outputs, (cal_a * volts + cal_b) * max|x|, are printed
-        plan = exf._plan_for(w, "bench").with_g(exf._read(st), exf.acfg) \
-            .with_perm(st.out_perm)
+        plan = exf._read_plan(w, "bench", st)
+        seen.clear()
+        for n in entry_fns:
+            setattr(analog_mod, n, recorded(n))
         eb.emulator_block_cuda.launches = 0
         eb.emulator_block_grid_cuda.launches = 0
-        vs, xs = exs.raw_matmul(xin, w, "bench", plan=plan,
-                                eparams=st.eparams, sfeat=st.sfeat)
+        try:
+            vs, xs = exs.raw_matmul(xin, w, "bench", plan=plan,
+                                    eparams=st.eparams, sfeat=st.sfeat)
+        finally:
+            for n, fn in entry_fns.items():
+                setattr(analog_mod, n, fn)
         n2, n3 = (eb.emulator_block_cuda.launches,
                   eb.emulator_block_grid_cuda.launches)
         vf, _ = exf.raw_matmul(xin, w, "bench", plan=plan,
@@ -1298,7 +1348,22 @@ def nonideal_phase(dev, card, npz, trained, ideal_ms):
             fail(f"slow path of the {name}: (B2, B3) launches {(n2, n3)}, "
                  f"expected {want}")
         out[key] += n2 + n3
-        out[key + "_err"] = compare(
+        if len(seen) != 1:
+            fail(f"slow path of the {name}: {len(seen)} kernel calls recorded")
+        n, a, k, y = seen[0]
+        if n == "emulator_block":
+            p_, x_, per_, _ = a
+            want_y = eb.emulator_block_plain(p_, x_, per_)
+            what = f"B2 P={per_.shape[1]} N={x_.shape[0]}"
+        else:
+            p_, v_, g_, geom_ = a
+            want_y = eb.emulator_block_grid_plain(p_, v_, g_, geom_)
+            what = f"B3 M={v_.shape[0]} NB={v_.shape[1]} blocks={g_.shape[0]}"
+        out[key + "_err"] = max(out[key + "_err"], compare(
+            f"{what} on the slow path's inputs under stressed ({name})",
+            y, want_y))
+        seen.clear()
+        out[key + "_slow_err"] = compare(
             f"slow path vs fast path, bench (16, 512) @ (512, 32) under "
             f"stressed, {name}, volts", vs, vf, SLOW_RTOL, SLOW_ATOL)
         print(f"[nonideal] the same, calibrated (cal_a {float(st.cal_a):.3f}, "

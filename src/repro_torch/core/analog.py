@@ -36,10 +36,12 @@ fault-remap permutation, hot-swapped emulator params, the scenario
 encoding a conditioned net consumes and the calibration affine -- is one
 ``core.deployment.DeploymentState`` per call site, derived from the
 immutable spec ``deploy(scenario=, age=, remap=, params=, key=)`` builds
-and cached per (tag, plan, deployment).  Read noise is redrawn on every
-call from the state's read key (``nonideal.perturb.apply_read_noise`` on
-``gf``, then ``with_g``), so the same state reads the same draw; at
-sigma 0 it is the identity up to clamping cells into [g_min, g_max].
+and cached per (tag, plan, deployment).  Read noise is drawn from the
+state's read key (``nonideal.perturb.apply_read_noise`` on ``gf``, then
+``with_g``), so the same state reads the same draw: the read plan is kept
+per tag while the state stays the same (``_read_plan``), and a new state
+-- a new generate, or a calibration draw -- reads a new cycle.  At sigma
+0 the read is the identity up to clamping cells into [g_min, g_max].
 ``DeploymentState.ideal()`` reproduces the plain path bit for bit.  The
 mesh-sharded forward is not ported yet (ROADMAP A11).
 """
@@ -87,8 +89,7 @@ class _STMatmul(torch.autograd.Function):
     def forward(ctx, ex: "AnalogExecutor", tag: str, x2: torch.Tensor,
                 w: torch.Tensor, st: DeploymentState):
         ctx.save_for_backward(x2, w)
-        plan = ex._plan_for(w, tag).with_g(ex._read(st), ex.acfg) \
-            .with_perm(st.out_perm)
+        plan = ex._read_plan(w, tag, st)
         yv, xs = ex.raw_matmul(x2, w, tag, plan=plan,
                                eparams=st.eparams or None, sfeat=st.sfeat)
         return (st.cal_a * yv + st.cal_b) * xs
@@ -189,6 +190,8 @@ class AnalogExecutor:
         self._plans: Dict[str, Tuple[torch.Tensor, ConductancePlan]] = {}
         # tag -> (plan, deployment, state, perturbed plan)
         self._state_cache: Dict[str, tuple] = {}
+        # tag -> (plan, state, the plan one read cycle of the state gives)
+        self._read_cache: Dict[str, tuple] = {}
         self._aux = None
         self._aux_src = None
         self._binding: Optional[_StateBinding] = None
@@ -261,6 +264,7 @@ class AnalogExecutor:
             params=dep.params if params is _UNSET else params,
             states=dep.states if states is _UNSET else states)
         self._state_cache.clear()
+        self._read_cache.clear()
         self._sfeat_ent = None
         self._read_calls = 0
         return self._deployment
@@ -385,6 +389,22 @@ class AnalogExecutor:
                                                     self.acfg.g_max), g)
         eps = read_noise_draw(g.shape, st.read_key, g.device)
         return apply_read_noise(g, self.acfg, st.read_sigma, eps)
+
+    def _read_plan(self, w: torch.Tensor, tag: str,
+                   st: DeploymentState) -> ConductancePlan:
+        """The plan a matmul of ``tag`` serves ``st`` through: one read
+        cycle of the state (``_read``) normalized by ``with_g``, with the
+        state's output permutation.  It depends only on the tag's plan and
+        the state, so the last one is kept per tag: the calls of one
+        generate, which share a state and its read key, read it once."""
+        plan = self._plan_for(w, tag)
+        ent = self._read_cache.get(tag) if tag else None
+        if ent is not None and ent[0] is plan and ent[1] is st:
+            return ent[2]
+        rplan = plan.with_g(self._read(st), self.acfg).with_perm(st.out_perm)
+        if tag:
+            self._read_cache[tag] = (plan, st, rplan)
+        return rplan
 
     def _cp_effective(self) -> CircuitParams:
         """CircuitParams with the scenario's line-resistance scaling."""

@@ -198,10 +198,21 @@ N_SCENARIO_FEATURES = len(SCENARIO_FEATURE_NAMES)
 _DRIFT_AGE_SCALE = 16.0
 
 
-def _f32(v) -> torch.Tensor:
+def _f32(v, device=None) -> torch.Tensor:
+    """A leaf as float32, on ``device`` (default: a tensor leaf's own)."""
     if isinstance(v, torch.Tensor):
-        return v.detach().float().cpu()
-    return torch.tensor(v, dtype=torch.float32)
+        return v.detach().to(device, torch.float32)
+    return torch.tensor(v, dtype=torch.float32, device=device)
+
+
+def _leaf_device(s: "Scenario") -> torch.device:
+    """The device of the scenario's first tensor leaf; the CPU if it has
+    none.  Its encodings are computed and returned there."""
+    for f in _LEAF_FIELDS:
+        v = getattr(s, f)
+        if isinstance(v, torch.Tensor):
+            return v.device
+    return torch.device("cpu")
 
 
 def _quant(nl: torch.Tensor) -> torch.Tensor:
@@ -214,16 +225,19 @@ def _age(t: torch.Tensor, t0: torch.Tensor) -> torch.Tensor:
 
 
 def scenario_features(s: Scenario) -> torch.Tensor:
-    """The fixed-length ``(N_SCENARIO_FEATURES,)`` float32 CPU vector a
-    conditioned emulator consumes (layout: ``SCENARIO_FEATURE_NAMES``).
-    Per-tile leaves reduce to (mean, max); scalar leaves to themselves,
-    so a scalar corner and its uniform tile batch encode identically.
-    The ideal scenario encodes to zeros."""
+    """The fixed-length ``(N_SCENARIO_FEATURES,)`` float32 vector a
+    conditioned emulator consumes (layout: ``SCENARIO_FEATURE_NAMES``),
+    on the device of the scenario's tensor leaves (the CPU for a scalar
+    corner).  Per-tile leaves reduce to (mean, max); scalar leaves to
+    themselves, so a scalar corner and its uniform tile batch encode
+    identically.  The ideal scenario encodes to zeros."""
+    dev = _leaf_device(s)
+
     def mean(v):
-        return torch.mean(_f32(v))
+        return torch.mean(_f32(v, dev))
 
     def mx(v):
-        return torch.max(_f32(v))
+        return torch.max(_f32(v, dev))
 
     return torch.stack([
         mean(s.prog_sigma), mx(s.prog_sigma),
@@ -232,7 +246,7 @@ def scenario_features(s: Scenario) -> torch.Tensor:
         mean(s.p_stuck_off), mx(s.p_stuck_off),
         mean(s.drift_nu), mx(s.drift_nu),
         _age(mean(s.drift_t), mean(s.drift_t0)),
-        torch.tensor(s.r_line_scale - 1.0, dtype=torch.float32),
+        _f32(s.r_line_scale - 1.0, dev),
         _quant(mx(s.n_levels)),
     ])
 
@@ -240,8 +254,9 @@ def scenario_features(s: Scenario) -> torch.Tensor:
 def scenario_features_tiled(s: Scenario, nb: Optional[int] = None,
                             no: Optional[int] = None) -> torch.Tensor:
     """Per-tile feature operand: an ``(NB, NO, N_SCENARIO_FEATURES)``
-    float32 CPU lattice, each tile encoded as a scalar corner of its own
-    values (its mean equals its max).  Scalar scenarios broadcast to the
+    float32 lattice on the device of the scenario's tensor leaves, each
+    tile encoded as a scalar corner of its own values (its mean equals its
+    max).  Scalar scenarios broadcast to the
     lattice given ``nb``/``no``; the ideal corner encodes to zeros."""
     shape = s.tile_shape
     if shape is None:
@@ -249,13 +264,16 @@ def scenario_features_tiled(s: Scenario, nb: Optional[int] = None,
             raise ValueError("scalar scenario needs explicit (nb, no)")
         shape = (int(nb), int(no))
 
+    dev = _leaf_device(s)
+
     def bc(v):
-        return _f32(v).expand(shape)
+        return _f32(v, dev).expand(shape)
 
     ps, rs = bc(s.prog_sigma), bc(s.read_sigma)
     on, off = bc(s.p_stuck_on), bc(s.p_stuck_off)
     nu = bc(s.drift_nu)
-    rline = torch.full(shape, s.r_line_scale - 1.0, dtype=torch.float32)
+    rline = torch.full(shape, s.r_line_scale - 1.0, dtype=torch.float32,
+                       device=dev)
     return torch.stack([ps, ps, rs, rs, on, on, off, off, nu, nu,
                         _age(bc(s.drift_t), bc(s.drift_t0)), rline,
                         _quant(bc(s.n_levels))], dim=-1)

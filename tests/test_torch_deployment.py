@@ -295,3 +295,34 @@ def test_serve_state_save_then_load_is_bit_equal(tmp_path, emulator_npz):
     np.testing.assert_array_equal(
         to_np(st.sfeat), np.asarray(R.scenario_features(
             R.get_scenario("stressed"))))
+
+
+def test_serve_analog_layers_serves_a_tiled_corner_on_one_lattice(
+        monkeypatch, emulator_npz):
+    """``--analog-layers`` (a port-only option) picks the projections that
+    run analog: a tiled corner on ``mlp.up``/``mlp.gate``'s lattice
+    serves on those sites alone, and the default ``mlp`` takes in
+    ``mlp.down``, whose lattice differs, so the corner is refused."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.core.crossbar import build_conductance_plan
+    from repro_torch.launch import serve
+    from repro_torch.nonideal import scenario as TS
+    _, cond = emulator_npz
+    cfg = reduced(get_config("gemma3-1b"), layers=2)
+    lat = build_conductance_plan(torch.zeros(cfg.d_model, cfg.d_ff),
+                                 AnalogConfig(), CASE_A)
+    sc = dataclasses.replace(
+        _tiled(T, T.get_scenario("stressed"), lat.NB, lat.NO), name="cli_tiled")
+    monkeypatch.setitem(TS._REGISTRY, "cli_tiled", sc)
+    base = ["--arch", "gemma3-1b", "--reduced", "--layers", "2", "--device",
+            "cpu", "--batch", "1", "--prompt-len", "4", "--gen", "2",
+            "--analog-backend", "emulator", "--emulator-params", cond,
+            "--conditioned-emulator", "--scenario", "cli_tiled"]
+    sess, out = serve.main(base + ["--analog-layers", "mlp.up,mlp.gate"])
+    assert sorted(sess.sites()) == ["mlp.gate#0", "mlp.gate#1", "mlp.up#0",
+                                    "mlp.up#1"]
+    assert np.isfinite(out["logits"]).all()
+    st = sess._last_states["mlp.up#0"]
+    assert tuple(st.sfeat.shape) == (lat.NB, lat.NO, T.N_SCENARIO_FEATURES)
+    with pytest.raises(ValueError, match="tile lattice"):
+        serve.main(base)

@@ -141,6 +141,18 @@ def test_scenario_features_of_random_tiled_corners(seed):
         assert getattr(c_t, f) == pytest.approx(getattr(c_r, f), rel=1e-6)
 
 
+def test_scenario_features_stay_on_the_leaves_device():
+    """The encodings are computed where the scenario's tensor leaves lie
+    (corners sampled on the card are encoded there); a corner of Python
+    scalars encodes on the CPU."""
+    ps = torch.full((2, 3), 0.05, device="meta")
+    ts = T.tile_scenarios(2, 3, base=T.get_scenario("stressed"), name="m",
+                          prog_sigma=ps)
+    assert T.scenario_features(ts).device.type == "meta"
+    assert T.scenario_features_tiled(ts).device.type == "meta"
+    assert T.scenario_features(T.get_scenario("stressed")).device.type == "cpu"
+
+
 def test_registry_json_and_leaf_pinning():
     s = T.Scenario(name="t_rt", prog_sigma=0.07, read_sigma=0.01,
                    p_stuck_on=0.002, p_stuck_off=0.004, drift_nu=0.04,
@@ -488,6 +500,29 @@ def test_read_noise_cycle_to_cycle_and_reproducible():
     assert st.has_read_noise
     assert torch.equal(ex.matmul(x, w, "t", state=st),
                        ex.matmul(x, w, "t", state=st))
+
+
+def test_read_plan_is_kept_while_the_state_stays(monkeypatch):
+    x, w = _xw()
+    ex = _ex()
+    ex.deploy(scenario=T.Scenario(name="rk", prog_sigma=0.05,
+                                  read_sigma=0.1), key=5)
+    st = ex.state_for("t", w)
+    real, reads = ex._read, []
+    monkeypatch.setattr(ex, "_read", lambda s: reads.append(s) or real(s))
+    y1 = ex.matmul(x, w, "t", state=st)
+    y2 = ex.matmul(x, w, "t", state=st)
+    assert len(reads) == 1 and torch.equal(y1, y2)
+    # the kept plan is the one a fresh read of the state gives, bit for bit
+    fresh = ex._plan_for(w, "t").with_g(real(st), ex.acfg) \
+        .with_perm(st.out_perm)
+    yv, xs = ex.raw_matmul(x, w, "t", plan=fresh, sfeat=st.sfeat)
+    assert torch.equal((st.cal_a * yv + st.cal_b) * xs, y1)
+    # the next read cycle is a new state: read again, and drawn anew
+    y3 = ex.matmul(x, w, "t", state=ex.state_for("t", w))
+    assert len(reads) == 2 and not torch.equal(y3, y1)
+    ex.deploy(scenario=None)
+    assert not ex._read_cache
 
 
 def test_noise_aware_calibration_and_drift_and_line_resistance():
