@@ -83,11 +83,29 @@ JAX or of the JAX package.  Phases (any failure exits non-zero):
      turns, the kernel alone (on b0 folded once), the call (the h0 fold
      included) and ``torch.add(a, b, out=h)`` (``copy_ms``: what the card
      achieves for the same traffic, no library call for the scan)
-  9. a JSON ``kernels`` line, then the card line, then the result line.
+  9. the recurrent families through the serve CLI at full width, batch
+     4, 8 tokens: recurrentgemma-2b cut to one (R, R, L) period, prompt
+     32, its MLPs on the phase-3 net (B1); falcon-mamba-7b cut to 2
+     layers, prompt 512, digital.  B6 runs each prefill recurrence (and,
+     with an executor, the session's one-token site discovery); B1 and
+     B6 launches counted per serve; B6's first call at the prompt's
+     length, recorded on the path, held bit for bit against the plain
+     version and timed beside its bytes bound and its share of prefill;
+     on recurrentgemma B1's first prefill call at each MLP shape
+     (gate/up 2560 -> 7680, down 7680 -> 2560), recorded on the path,
+     held against the plain version (rtol 1e-4, atol 1e-5) and timed
+     beside its bound;
+     prefill ms, decode ms a step, peak memory; then, digital, fp32, TF32
+     off, prefill + 3 decode steps against one forward over the same
+     tokens (rtol 1e-3, atol 1e-3 of the logits' scale)
+ 10. a JSON ``kernels`` line, then the card line, then the result line.
      The B2, B3 and B6 rows' ``ms`` is the kernel alone (B2, B3 on weights
      packed once); their ``call_ms`` is the whole call a user makes, which
      also packs the weights on the host (B2, B3) or folds h0 (B6).  Every
-     other row's ``ms`` is the call.
+     other row's ``ms`` is the call.  B1's and B6's records carry their
+     launches on phase 9's serves (``model_launches``) and their path
+     calls (``model_path``: B1's two MLP shapes; B6's per serve, with its
+     times and memory).
 """
 from __future__ import annotations
 
@@ -901,7 +919,11 @@ def main() -> None:
     print(f"[entry points] phase 8 took {time.perf_counter() - t7:.1f} s",
           flush=True)
 
-    # ---- phase 9: the kernels line ---------------------------------------
+    # ---- phase 9: the recurrent families ----------------------------------
+    rec = recurrent_phase(dev, card, npz)
+    torch.cuda.empty_cache()
+
+    # ---- phase 10: the kernels line --------------------------------------
     ebk = "emulator_block/emulator_block.py:"
     b1_head = next(r for r in b1_shapes if r["shape"].startswith("mlp.up")
                    and r["shape"].endswith(" M=4"))
@@ -910,8 +932,10 @@ def main() -> None:
     src = "emulator_block/csrc/"
     kernels = [
         entry("emulator_block_unified", src + "emulator_block_unified.cu",
-              ebk + "295", b1_launches, max(max_abs["B1"], ni["b1_err"]),
-              b1_head, b1_shapes, nonideal_launches=ni["b1"]),
+              ebk + "295", b1_launches,
+              max(max_abs["B1"], ni["b1_err"], rec["b1_err"]),
+              b1_head, b1_shapes, nonideal_launches=ni["b1"],
+              model_launches=rec["b1"], model_path=rec["b1_rows"]),
         entry("emulator_block_unified (bf16 mode)",
               src + "emulator_block_unified.cu", ebk + "295", b1_bf16_launches,
               max_abs["B1 bf16"], b1_bf16_head, b1_bf16_shapes),
@@ -927,6 +951,9 @@ def main() -> None:
               slow_vs_fast_volts_err=ni["b3_slow_err"]),
         b4, b5, b6,
     ]
+    b6["max_abs_err"] = max(b6["max_abs_err"], rec["b6_err"])
+    b6["model_launches"] = rec["b6"]
+    b6["model_path"] = rec["rows"]
     print(f"[done] {time.perf_counter() - t_start:.1f} s", flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
@@ -1376,6 +1403,289 @@ def nonideal_phase(dev, card, npz, trained, ideal_ms):
     print(f"[nonideal] phase took {time.perf_counter() - t_phase:.1f} s",
           flush=True)
     return out
+
+
+# phase 9's serves: (arch, layers, prompt length, MLPs on the emulator);
+# batch 4, 8 tokens, full published widths, depth cut: recurrentgemma-2b
+# to one (R, R, L) period, falcon-mamba-7b to two M layers
+REC_SERVES = (("recurrentgemma-2b", 3, 32, True),
+             ("falcon-mamba-7b", 2, 512, False))
+REC_B, REC_G, REC_DECODE = 4, 8, 3
+# prefill + decode against one forward over the same tokens, fp32, TF32
+# off: rtol, and atol as a share of the logits' largest magnitude
+REC_RTOL, REC_ATOL = 1e-3, 1e-3
+
+
+def recurrent_phase(dev, card, npz):
+    """Phase 9: recurrentgemma-2b (RG-LRU) and falcon-mamba-7b (Mamba-1)
+    served at full width through the serve CLI, B6 (the linear scan) on
+    their prefill recurrence, B1 on recurrentgemma's MLPs (the phase-3
+    net).  The launch counts are set to 0 just before each serve and read
+    just after; a recording wrapper around the ``ops.linear_scan`` that
+    ``models/ssm.py`` calls keeps the first call at the prompt's length,
+    which is then held bit for bit against the plain version and timed.
+    On an analog serve a recording wrapper around the B1 wrapper that the
+    dispatcher calls keeps the first prefill call (M = batch x prompt) of
+    each MLP shape (the gate/up projection, the down projection), held
+    against the plain version at the fp32 gate and timed.  Then,
+    digitally in fp32, prefill + ``REC_DECODE`` decode steps against one
+    forward over the same tokens.  Returns the launches per arch, the
+    path calls' errors, B1's path-call rows and one row per arch for the
+    ``kernels`` line."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import MAMBA, RECURRENT, ParallelConfig
+    from repro_torch.kernels.emulator_block import emulator_block as eb
+    from repro_torch.kernels.linear_scan import ops as scan_ops
+    from repro_torch.launch import serve
+    from repro_torch.models import model as M
+    from repro_torch.runtime import steps as S
+    lsm = importlib.import_module("repro_torch.kernels.linear_scan.linear_scan")
+    eb_ops = importlib.import_module("repro_torch.kernels.emulator_block.ops")
+    out = {"b1": {}, "b1_err": 0.0, "b1_rows": [], "b6": {}, "b6_err": 0.0,
+           "rows": []}
+    B, G = REC_B, REC_G
+    t_phase = time.perf_counter()
+    for arch, layers, P, analog in REC_SERVES:
+        argv = ["--arch", arch, "--layers", str(layers), "--batch", str(B),
+                "--prompt-len", str(P), "--gen", str(G), "--seed", "0"]
+        if analog:
+            argv += ["--analog-backend", "emulator", "--emulator-params",
+                     str(npz)]
+        real = scan_ops.linear_scan
+        path_calls = []
+
+        def recording(a, b, h0=None, **kw):
+            h, h_last = real(a, b, h0, **kw)
+            if a.shape[1] == P and not path_calls:
+                path_calls.append((a, b, h0, h))
+            return h, h_last
+
+        real_b1 = eb_ops.emulator_block_unified_cuda
+        b1_calls = {}
+
+        def recording_b1(aux, g_norm, u01, pos01, **kw):
+            y = real_b1(aux, g_norm, u01, pos01, **kw)
+            key = tuple(g_norm.shape)
+            if u01.shape[0] == B * P and key not in b1_calls:
+                b1_calls[key] = (aux, g_norm, u01, pos01, kw, y)
+            return y
+
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        scan_ops.linear_scan = recording
+        eb_ops.emulator_block_unified_cuda = recording_b1
+        lsm.linear_scan_cuda.launches = 0
+        eb.emulator_block_unified_cuda.launches = 0
+        try:
+            sess, res = serve.main(argv)
+        finally:
+            scan_ops.linear_scan = real
+            eb_ops.emulator_block_unified_cuda = real_b1
+        b6 = lsm.linear_scan_cuda.launches
+        b1 = eb.emulator_block_unified_cuda.launches
+        peak = torch.cuda.max_memory_allocated(dev)
+        cfg = sess.cfg
+        full = get_config(arch)
+        n_rec = sum(k in (RECURRENT, MAMBA) for k in cfg.layer_kinds)
+        n_sites = len(sess.sites())
+        # one B6 launch a recurrent layer at prefill; with an executor, the
+        # session's site discovery (a one-token digital forward) adds one
+        # a layer more
+        want_b6 = n_rec * (2 if analog else 1)
+        want_b1 = n_sites * G
+        print(f"[recurrent] {cfg.name}: d_model={cfg.d_model} d_ff={cfg.d_ff} "
+              f"vocab={cfg.vocab_size} layers={cfg.num_layers} "
+              f"({''.join(cfg.layer_kinds)}) sites={n_sites}; B6 launches {b6} "
+              f"(expected {want_b6}), B1 launches {b1} (expected {want_b1})",
+              flush=True)
+        if (cfg.d_model, cfg.d_ff, cfg.vocab_size) != (
+                full.d_model, full.d_ff, full.vocab_size):
+            fail(f"{arch} was not served at full width")
+        if b6 != want_b6 or not b6:
+            fail(f"B6 launched {b6} times serving {arch}, expected {want_b6}")
+        if b1 != want_b1 or (analog and not b1):
+            fail(f"B1 launched {b1} times serving {arch}, expected {want_b1}")
+        if res["tokens"].shape != (B, G) or not np_isfinite(res["logits"]):
+            fail(f"{arch}: tokens {res['tokens'].shape} or non-finite logits")
+        out["b6"][arch] = b6
+        if analog:
+            out["b1"][arch] = b1
+            if len(b1_calls) != 2:
+                fail(f"{arch}: B1 prefill calls recorded at "
+                     f"{len(b1_calls)} MLP shapes, expected 2")
+        for key, (aux, gn, u, pos, kw, y) in b1_calls.items():
+            # the gate and up projections share a shape; down reads d_ff
+            NB, NO, D, H, W = key
+            tag = "mlp.down" if NB * D * H >= cfg.d_ff else "mlp.up"
+            if kw.get("shift") is not None or kw.get("compute_dtype",
+                                                     torch.float32) != torch.float32:
+                fail(f"{arch} {tag}: B1 path call is not the fp32 ideal "
+                     f"corner ({sorted(kw)})")
+            a0, a1 = torch.cuda.Event(enable_timing=True), \
+                torch.cuda.Event(enable_timing=True)
+            a0.record()
+            want = eb.emulator_block_unified_plain(aux, gn, u, pos)
+            a1.record()
+            torch.cuda.synchronize()
+            pms = a0.elapsed_time(a1)
+            label = (f"B1 {arch} {tag} path call M={u.shape[0]} "
+                     f"NB={NB} NO={NO}")
+            err = compare(label, y, want)
+            out["b1_err"] = max(out["b1_err"], err)
+            del want
+            ms = cuda_ms(lambda: eb.emulator_block_unified_cuda(aux, gn, u, pos),
+                         iters=3, warmup=1)
+            O = aux["fcs"][-1][0].shape[1]
+            flat = aux["fcs"][0][0].shape[0]
+            nbytes, gemm, other = unified_work(u.shape[0], NB, NO, D, W, O,
+                                               flat, None)
+            bms, by = bound_ms(nbytes, (gemm + other, FP32_FLOP_S))
+            print(f"[time] {label}: kernel {ms:.3f} ms, plain {pms:.3f} ms, "
+                  f"bound {bms:.3f} ms ({by}: {nbytes / 1e9:.3f} GB, "
+                  f"{(gemm + other) / 1e9:.2f} GFLOP at fp32) [{card}]",
+                  flush=True)
+            out["b1_rows"].append(dict(
+                shape=f"{arch} {tag} M={u.shape[0]} NB={NB} NO={NO}", ms=ms,
+                plain_ms=pms, bound_ms=bms, bound_by=by, bytes=nbytes,
+                flops=gemm + other, max_abs_err=err))
+        b1_calls.clear()
+        if not path_calls:
+            fail(f"{arch}: no linear_scan call at the prompt's length")
+        a, b, h0, h = path_calls.pop()
+        b0 = None if h0 is None else lsm.fold_h0(a, b, h0)
+        t0 = time.perf_counter()
+        want = lsm.linear_scan_plain(a, b, b0)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        equal = torch.equal(h, want)
+        err = float((h.float() - want.float()).abs().max())
+        out["b6_err"] = max(out["b6_err"], err)
+        Bp, Sp, Dp = a.shape
+        ms = cuda_ms(lambda: scan_ops.linear_scan(a, b, h0), iters=10)
+        nbytes = 3 * Bp * Sp * Dp * a.element_size()
+        bms, by = bound_ms(nbytes, (2 * Bp * Sp * Dp, FP32_FLOP_S))
+        pre_ms = res["prefill_s"] * 1e3
+        dec_ms = res["decode_s"] * 1e3 / (G - 1)
+        share = n_rec * ms / pre_ms
+        print(f"[recurrent] {arch} B6 path call ({Bp}, {Sp}, {Dp}) "
+              f"{str(a.dtype).split('.')[-1]} h0={'yes' if h0 is not None else 'none'}: "
+              f"bit-equal to the plain version {equal} (max_abs {err:.3e}); "
+              f"{ms:.4f} ms, bound {bms:.4f} ms ({by}: {nbytes / 1e9:.3f} GB), "
+              f"plain {plain_ms:.1f} ms (host clock); {n_rec} launches "
+              f"{100 * share:.1f}% of prefill [{card}]", flush=True)
+        if not equal:
+            fail(f"{arch}: B6's path call is not bit-equal to its plain version")
+        print(f"[recurrent] {arch} serve {B}x{P} + {G - 1} decode steps: "
+              f"prefill {pre_ms:.1f} ms ({B * P / res['prefill_s']:.0f} tok/s), "
+              f"decode {dec_ms:.2f} ms a step; peak memory {peak / 2**30:.2f} "
+              f"GiB [{card}]", flush=True)
+        del a, b, h0, h, b0, want
+        # the same session again, warm; then once more under the profiler,
+        # for the breakdown of PERF.md section 5
+        warm = sess.generate()
+        wpre_ms = warm["prefill_s"] * 1e3
+        wdec_ms = warm["decode_s"] * 1e3 / (G - 1)
+        traced, wall_ms, busy_ms, top = profiled(sess.generate)
+        print(f"[recurrent] {arch} warm serve: prefill {wpre_ms:.1f} ms "
+              f"(B6 {100 * n_rec * ms / wpre_ms:.1f}% of it), decode "
+              f"{wdec_ms:.2f} ms a step; under the profiler the card was "
+              f"busy {busy_ms:.1f} of {wall_ms:.1f} ms [{card}]", flush=True)
+        for name, t, n in top:
+            print(f"[recurrent] {arch}   {t:9.3f} ms {n:5d}x  {name[:90]}",
+                  flush=True)
+        row = dict(arch=arch, layers=layers, batch=B, prompt=P, gen=G,
+                   analog=analog, b6_launches=b6, b1_launches=b1,
+                   shape=f"B6 {arch} path call B={Bp} S={Sp} D={Dp}",
+                   ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                   share_of_prefill=share, prefill_ms=pre_ms,
+                   decode_ms_step=dec_ms, warm_prefill_ms=wpre_ms,
+                   warm_decode_ms_step=wdec_ms, profiled_ms=wall_ms,
+                   device_busy_ms=busy_ms,
+                   top_kernels=top, peak_gib=peak / 2**30)
+        del sess, res, warm, traced
+        torch.cuda.empty_cache()
+
+        # prefill + decode == one forward, digital, fp32 (TF32 is off)
+        f32 = torch.float32
+        params = S.init_model_params(1, cfg, dev)
+        pcfg = ParallelConfig(compute_dtype="float32",
+                              attn_block_kv=min(1024, P))
+        g = torch.Generator(device=dev)
+        g.manual_seed(900)
+        T = REC_DECODE
+        toks = torch.randint(0, cfg.vocab_size, (B, P + T), generator=g,
+                             device=dev)
+        with torch.no_grad():
+            hs, _ = M.forward(params, toks, cfg=cfg, pcfg=pcfg, mode="prefill",
+                              compute_dtype=f32)
+            full_logits = M.compute_logits(params, hs[:, P - 1:], cfg)
+            del hs
+            logits, pc = M.prefill(params, toks[:, :P], cfg=cfg, pcfg=pcfg,
+                                   compute_dtype=f32)
+            cache = serve._splice_tree(M.zeros_cache(M.model_cache_schema(
+                cfg, B, P + T, dtype=f32), dev), pc)
+            del pc
+            steps = [logits]
+            for i in range(T):
+                logits, cache = M.decode_step(params, toks[:, P + i:P + i + 1],
+                                              cache, P + i, cfg=cfg, pcfg=pcfg,
+                                              compute_dtype=f32)
+                steps.append(logits)
+        V = cfg.vocab_size
+        want_l = full_logits[..., :V]
+        scale = float(want_l.abs().max())
+        errs = []
+        for i, got in enumerate(steps):
+            d = (got[:, :V] - want_l[:, i]).abs()
+            errs.append(float(d.max()))
+            if not bool((d <= REC_ATOL * scale
+                         + REC_RTOL * want_l[:, i].abs()).all()):
+                fail(f"{arch}: step {i} of prefill + decode disagrees with "
+                     f"the full forward (max abs {errs[-1]:.3e}, logits' "
+                     f"scale {scale:.3e})")
+        print(f"[recurrent] {arch} prefill({P}) + {T} decode steps vs one "
+              f"forward over {P + T} tokens (fp32, TF32 off): max abs per step "
+              f"{', '.join(f'{e:.2e}' for e in errs)}; logits' scale "
+              f"{scale:.3e} (gate rtol {REC_RTOL}, atol {REC_ATOL} of scale) ok",
+              flush=True)
+        row["consistency_max_abs"] = max(errs)
+        row["logits_scale"] = scale
+        out["rows"].append(row)
+        del params, toks, full_logits, want_l, steps, cache, logits
+        torch.cuda.empty_cache()
+    print(f"[recurrent] phase took {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return out
+
+
+def profiled(fn, n_top=8):
+    """Run ``fn`` under ``torch.profiler``; return its result, its host
+    time (ms, from before the call to after a synchronize), the card's
+    busy time within it (ms, the sum of the device-side events: kernels
+    and copies) and the ``n_top`` of those by device time as (name, ms,
+    count).  The host-side operators that launched them are left out:
+    they carry their kernels' device time too."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        result = fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = []
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        t = getattr(e, "self_device_time_total", None)
+        if t is None:
+            t = getattr(e, "self_cuda_time_total", 0.0)
+        if t > 0:
+            rows.append((e.key, t / 1e3, e.count))
+    rows.sort(key=lambda r: -r[1])
+    return result, wall_ms, sum(r[1] for r in rows), rows[:n_top]
 
 
 def attention_pairs(S, causal, window):

@@ -22,6 +22,25 @@ ATTN_KINDS = (GLOBAL_ATTN, LOCAL_ATTN, CHUNKED_ATTN, BIDIR_ATTN)
 
 
 @dataclass(frozen=True)
+class SSMConfig:
+    """Mamba-1 mixer configuration."""
+    d_state: int = 16
+    d_conv: int = 4
+    expand: int = 2
+    dt_rank: int = 0                   # 0 -> ceil(d_model / 16)
+
+    def resolved_dt_rank(self, d_model: int) -> int:
+        return self.dt_rank or -(-d_model // 16)
+
+
+@dataclass(frozen=True)
+class RGLRUConfig:
+    """RG-LRU recurrent block (griffin) configuration."""
+    lru_width: int = 0                 # 0 -> d_model
+    d_conv: int = 4
+
+
+@dataclass(frozen=True)
 class AnalogConfig:
     """SEMULATOR analog-crossbar execution of matmuls.
 
@@ -84,6 +103,8 @@ class ArchConfig:
     encoder_layers: int = 0
     frontend: str = "none"
     frontend_tokens: int = 256
+    ssm: Optional[SSMConfig] = None
+    rglru: Optional[RGLRUConfig] = None
     analog: AnalogConfig = field(default_factory=AnalogConfig)
     source: str = ""
 
@@ -109,7 +130,7 @@ class ArchConfig:
 
 def reduced(cfg: ArchConfig, *, layers: Optional[int] = None) -> ArchConfig:
     """A tiny same-family config for CPU smoke tests (the reference's
-    ``reduced`` for the dense attention families ported so far)."""
+    ``reduced``; its MoE replacement comes with the MoE families)."""
     pat = cfg.pattern
     n_layers = layers if layers is not None else max(len(pat), 2)
     kw = dict(
@@ -125,6 +146,10 @@ def reduced(cfg: ArchConfig, *, layers: Optional[int] = None) -> ArchConfig:
         frontend_tokens=4 if cfg.frontend != "none" else cfg.frontend_tokens,
         encoder_layers=2 if cfg.encoder_layers else 0,
     )
+    if cfg.ssm is not None:
+        kw["ssm"] = dataclasses.replace(cfg.ssm, d_state=4, dt_rank=8)
+    if cfg.rglru is not None:
+        kw["rglru"] = dataclasses.replace(cfg.rglru, lru_width=64)
     return dataclasses.replace(cfg, name=cfg.name + "-reduced", **kw)
 
 

@@ -8,10 +8,13 @@ CLI:
       --layers 2 --batch 4 --prompt-len 32 --gen 8 \
       --analog-backend emulator --emulator-params emulator.npz
 
-runs on the GPU (``--device cpu`` runs on the CPU).  ``--reduced`` serves
-the reference's tiny same-family config; ``--layers`` alone keeps the
-full widths and cuts the depth.  ``--analog-backend`` is ``digital``,
-``emulator`` (needs ``--emulator-params``), ``analytic`` or ``circuit``.
+runs on the GPU (``--device cpu`` runs on the CPU).  ``--arch`` is
+gemma3-1b, recurrentgemma-2b, falcon-mamba-7b or deepseek-coder-33b; the
+reference's other archs raise ``NotImplementedError`` (ROADMAP A9).
+``--reduced`` serves the reference's tiny same-family config;
+``--layers`` alone keeps the full widths and cuts the depth.
+``--analog-backend`` is ``digital``, ``emulator`` (needs
+``--emulator-params``), ``analytic`` or ``circuit``.
 
 Under a device corner (``nonideal``):
 
@@ -60,7 +63,9 @@ def _sync(device: torch.device) -> None:
 
 def _splice(z: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     """Write prefill cache ``c`` at the origin of generation cache ``z``
-    (the reference's ``dynamic_update_slice`` at zeros)."""
+    (the reference's ``dynamic_update_slice`` at zeros).  A recurrent
+    layer's conv and h states have the same shape in both and pass
+    through, cast to ``z``'s dtype (h stays float32)."""
     c = c.to(z.dtype)
     if z.shape == c.shape:
         return c

@@ -1,16 +1,22 @@
-"""Per-layer wiring: norms + residuals + attention + FFN (port of
-``repro.models.blocks`` for the attention layers gemma3 uses)."""
+"""Per-layer wiring: norms + residuals + mixer + FFN (port of
+``repro.models.blocks`` for the attention, RG-LRU and Mamba layers).
+
+A layer = (norm -> mixer -> residual) [+ (norm -> FFN -> residual)].
+Mamba layers are mixer-only (the mixer subsumes the FFN)."""
 from __future__ import annotations
 
 from typing import Any, Dict, Optional, Tuple
 
 import torch
 
-from repro_torch.configs.base import ArchConfig, ATTN_KINDS
+from repro_torch.configs.base import ArchConfig, ATTN_KINDS, MAMBA, RECURRENT
 from repro_torch.models.attention import (attention_schema, attn_mixer,
                                           attn_cache_schema)
 from repro_torch.models.common import (activation, apply_norm, dense,
                                        dense_schema, norm_schema)
+from repro_torch.models.ssm import (mamba_cache_schema, mamba_mixer,
+                                    mamba_schema, rglru_cache_schema,
+                                    rglru_mixer, rglru_schema)
 
 
 def mlp_schema(cfg: ArchConfig):
@@ -33,8 +39,8 @@ def mlp_apply(params, x, cfg: ArchConfig, pcfg=None):
 
 
 def _check_kind(cfg: ArchConfig, kind: str):
-    if kind not in ATTN_KINDS or cfg.parallel_block or cfg.encoder_layers \
-            or cfg.norm != "rmsnorm" or cfg.qkv_bias:
+    if kind not in ATTN_KINDS + (RECURRENT, MAMBA) or cfg.parallel_block \
+            or cfg.encoder_layers or cfg.norm != "rmsnorm" or cfg.qkv_bias:
         raise NotImplementedError(
             f"layer kind {kind!r} of {cfg.name} is not ported yet "
             "(ROADMAP A9: the other families)")
@@ -43,37 +49,61 @@ def _check_kind(cfg: ArchConfig, kind: str):
 def layer_schema(cfg: ArchConfig, kind: str):
     _check_kind(cfg, kind)
     d = cfg.d_model
-    s: Dict[str, Any] = {"norm1": norm_schema(d, cfg.norm),
-                         "attn": attention_schema(cfg),
-                         "norm2": norm_schema(d, cfg.norm),
-                         "ff": mlp_schema(cfg)}
+    s: Dict[str, Any] = {"norm1": norm_schema(d, cfg.norm)}
+    if kind == RECURRENT:
+        s["mixer"] = rglru_schema(cfg)
+    elif kind == MAMBA:
+        s["mixer"] = mamba_schema(cfg)
+    else:
+        s["attn"] = attention_schema(cfg)
+    if kind != MAMBA:
+        s["norm2"] = norm_schema(d, cfg.norm)
+        s["ff"] = mlp_schema(cfg)
     if cfg.post_norms:
         s["post_norm1"] = norm_schema(d, cfg.norm)
-        s["post_norm2"] = norm_schema(d, cfg.norm)
+        if kind != MAMBA:
+            s["post_norm2"] = norm_schema(d, cfg.norm)
     return s
 
 
 def layer_cache_schema(cfg: ArchConfig, kind: str, batch: int, s_max: int,
                        dtype=None):
-    """{name: {"k"/"v": (shape, dtype)}} for one layer's decode cache."""
-    return {"attn": attn_cache_schema(cfg, kind, batch, s_max,
-                                      dtype=dtype or torch.bfloat16)}
+    """{name: {leaf: (shape, dtype)}} for one layer's decode cache: an
+    attention layer's "k"/"v" under "attn", a recurrent layer's "conv"
+    (in ``dtype``) and "h" (float32) under "mixer"."""
+    dt = dtype or torch.bfloat16
+    if kind == RECURRENT:
+        return {"mixer": rglru_cache_schema(cfg, batch, dtype=dt)}
+    if kind == MAMBA:
+        return {"mixer": mamba_cache_schema(cfg, batch, dtype=dt)}
+    return {"attn": attn_cache_schema(cfg, kind, batch, s_max, dtype=dt)}
 
 
 def apply_layer(params, x, *, cfg: ArchConfig, pcfg, kind: str,
                 mode: str = "train", cache=None, pos=None, positions=None
                 ) -> Tuple[torch.Tensor, Optional[dict]]:
     """Returns (x, new_cache_or_None)."""
+    c = cache or {}
     h = apply_norm(params["norm1"], x, cfg.norm)
-    mix, mc = attn_mixer(params["attn"], h, cfg=cfg, pcfg=pcfg, kind=kind,
-                         positions=positions,
-                         cache=(cache or {}).get("attn"), pos=pos, mode=mode)
+    if kind == RECURRENT:
+        mix, mc = rglru_mixer(params["mixer"], h, cfg=cfg, pcfg=pcfg,
+                              cache=c.get("mixer"), mode=mode)
+    elif kind == MAMBA:
+        mix, mc = mamba_mixer(params["mixer"], h, cfg=cfg, pcfg=pcfg,
+                              cache=c.get("mixer"), mode=mode)
+    else:
+        mix, mc = attn_mixer(params["attn"], h, cfg=cfg, pcfg=pcfg,
+                             kind=kind, positions=positions,
+                             cache=c.get("attn"), pos=pos, mode=mode)
     if cfg.post_norms:
         mix = apply_norm(params["post_norm1"], mix, cfg.norm)
     x = x + mix
-    h2 = apply_norm(params["norm2"], x, cfg.norm)
-    ff = mlp_apply(params["ff"], h2, cfg, pcfg)
-    if cfg.post_norms:
-        ff = apply_norm(params["post_norm2"], ff, cfg.norm)
-    x = x + ff
-    return x, ({"attn": mc} if mc is not None else None)
+    if kind != MAMBA:
+        h2 = apply_norm(params["norm2"], x, cfg.norm)
+        ff = mlp_apply(params["ff"], h2, cfg, pcfg)
+        if cfg.post_norms:
+            ff = apply_norm(params["post_norm2"], ff, cfg.norm)
+        x = x + ff
+    if mc is None:
+        return x, None
+    return x, {"attn" if kind in ATTN_KINDS else "mixer": mc}

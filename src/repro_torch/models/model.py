@@ -6,7 +6,9 @@ Layers group into the arch's repeating ``pattern`` period.  The
 parameters of the ``num_periods`` full periods are stacked on a leading
 axis (``decoder.scan.p{i}``, as in the reference); the reference's
 ``lax.scan`` over periods is a Python loop here.  Remainder layers are
-the unrolled tail (``decoder.tail.t{i}``).
+the unrolled tail (``decoder.tail.t{i}``).  The LM head is the tied
+embedding or, untied, the ``head`` projection (a ``dense()`` site tagged
+``lm_head``).
 """
 from __future__ import annotations
 
@@ -17,24 +19,25 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.blocks import apply_layer, layer_schema, layer_cache_schema
-from repro_torch.models.common import (ParamSchema, apply_norm, einsum,
-                                       norm_schema, scan_states_provider,
-                                       stack_schema)
+from repro_torch.models.common import (ParamSchema, apply_norm, dense,
+                                       einsum, norm_schema,
+                                       scan_states_provider, stack_schema)
 
 NEG_INF = -1e30
 
 
 def model_schema(cfg: ArchConfig) -> Dict[str, Any]:
     d, vp = cfg.d_model, cfg.padded_vocab
-    if cfg.frontend != "none" or cfg.encoder_layers \
-            or not cfg.tie_embeddings or cfg.logit_softcap:
-        raise NotImplementedError(f"{cfg.name}: frontends, encoders, untied "
-                                  "heads and logit softcaps are not ported "
-                                  "yet (ROADMAP A9)")
+    if cfg.frontend != "none" or cfg.encoder_layers or cfg.logit_softcap:
+        raise NotImplementedError(f"{cfg.name}: frontends, encoders and "
+                                  "logit softcaps are not ported yet "
+                                  "(ROADMAP A9)")
     s: Dict[str, Any] = {
         "embed": ParamSchema((vp, d), "embed", d ** -0.5),
         "final_norm": norm_schema(d, cfg.norm),
     }
+    if not cfg.tie_embeddings:
+        s["head"] = ParamSchema((d, vp), "normal", d ** -0.5)
     scan: Dict[str, Any] = {}
     if cfg.num_periods > 0:
         for i, kind in enumerate(cfg.pattern):
@@ -79,6 +82,18 @@ def _select(tree, p):
     return tree[p]
 
 
+def _write_back(views, new):
+    """Copy a layer's returned decode cache into the per-period ``views``
+    of the stacked caches where the layer returned new tensors (a
+    recurrent layer's conv and h states); attention returns the views it
+    wrote in place, which need no copy."""
+    for k, v in new.items():
+        if isinstance(v, dict):
+            _write_back(views[k], v)
+        elif v is not views[k]:
+            views[k].copy_(v)
+
+
 def _stack(trees):
     if isinstance(trees[0], dict):
         return {k: _stack([t[k] for t in trees]) for k in trees[0]}
@@ -89,7 +104,8 @@ def _run_stack(stack_params, x, *, cfg: ArchConfig, pcfg, pattern,
                tail_kinds, mode, caches, pos, positions,
                scan_group: str = "dec"):
     """Stacked periods (a Python loop) + unrolled tail.  Returns
-    (x, new_caches).  Decode updates the caches in place; its returned
+    (x, new_caches).  Decode updates the stacked caches in place (what a
+    period's layer returns is written back into its slice); its returned
     tree holds the same tensors.  A site-keying provider installed with
     ``use_scan_states`` sees each period announced, so analog call sites
     are keyed ``"{scan_group}.{p}:{tag}#{j}"`` as in the reference."""
@@ -113,6 +129,8 @@ def _run_stack(stack_params, x, *, cfg: ArchConfig, pcfg, pattern,
                                         pos=pos, positions=positions)
                     if nc is not None:
                         ncs[f"p{i}"] = nc
+                        if mode == "decode":
+                            _write_back(lc, nc)
             per.append(ncs)
         if mode == "prefill":
             new_caches["scan"] = _stack(per)
@@ -152,9 +170,13 @@ def forward(params, tokens, *, cfg: ArchConfig, pcfg, mode: str = "train",
 
 
 def compute_logits(params, h, cfg: ArchConfig):
-    """h: (B,S,D) -> logits (B,S,Vp) fp32 from the tied embedding, padded
-    vocab masked."""
-    logits = einsum("bsd,vd->bsv", h, params["embed"].to(h.dtype)).float()
+    """h: (B,S,D) -> logits (B,S,Vp) fp32 from the tied embedding or the
+    untied head, padded vocab masked."""
+    if cfg.tie_embeddings:
+        logits = einsum("bsd,vd->bsv", h, params["embed"].to(h.dtype))
+    else:
+        logits = dense(h, params["head"], "lm_head")
+    logits = logits.float()
     if cfg.padded_vocab != cfg.vocab_size:
         mask = torch.arange(cfg.padded_vocab, device=h.device) >= cfg.vocab_size
         logits = torch.where(mask[None, None, :], NEG_INF, logits)

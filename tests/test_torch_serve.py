@@ -20,51 +20,10 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-import jax  # noqa: E402
-import jax.numpy as jnp  # noqa: E402
-
-from repro.configs import get_config as ref_get_config, reduced as ref_reduced  # noqa: E402
-from repro.configs.base import AnalogConfig as RefAnalogConfig, ParallelConfig as RefPcfg  # noqa: E402
-from repro.configs.rram_ps32 import CASE_A as REF_A  # noqa: E402
-from repro.core.analog import AnalogExecutor as RefExecutor  # noqa: E402
-from repro.models import model as RM  # noqa: E402
-from repro.models.common import init_params as ref_init_params, use_dense_hook as ref_hook  # noqa: E402
-from repro_torch.configs import get_config, reduced  # noqa: E402
-from repro_torch.configs.base import AnalogConfig, ParallelConfig  # noqa: E402
-from repro_torch.configs.rram_ps32 import CASE_A  # noqa: E402
-from repro_torch.core.analog import AnalogExecutor  # noqa: E402
-from repro_torch.interop import params_from_numpy  # noqa: E402
-from repro_torch.launch.serve import ServeSession, _splice_tree  # noqa: E402
-from repro_torch.models import model as TM  # noqa: E402
-from repro_torch.models.common import use_dense_hook  # noqa: E402
-from torch_parity import both_emulator_params, tree_np  # noqa: E402
+from repro_torch.launch.serve import ServeSession  # noqa: E402
+from torch_parity import BF16_REL, model_parity_f32, serve_parity_bf16  # noqa: E402
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-
-
-def _ref_splice(z, c):
-    """The reference ServeSession's prefill-cache splice."""
-    c = c.astype(z.dtype)
-    if z.shape == c.shape:
-        return c
-    if z.ndim == c.ndim and ((z.shape[2:] == c.shape[2:] and z.shape[0] == c.shape[0])
-                             or (z.shape[3:] == c.shape[3:]
-                                 and z.shape[:2] == c.shape[:2])):
-        return jax.lax.dynamic_update_slice(z, c, (0,) * c.ndim)
-    return z
-
-
-def _executors(backend):
-    if backend == "digital":
-        return None, None
-    jp, tp = both_emulator_params(REF_A, 0, seed=3)
-    ref = RefExecutor(acfg=RefAnalogConfig(enabled=True, backend="emulator",
-                                           layers=("mlp",)),
-                      geom=REF_A, emulator_params=jp, use_pallas=False)
-    ex = AnalogExecutor(AnalogConfig(enabled=True, backend="emulator",
-                                     layers=("mlp",)),
-                        geom=CASE_A, emulator_params=tp)
-    return ref, ex
 
 
 # prompt 32 = 2 windows of the reduced config (the chunked sliding-window
@@ -77,96 +36,12 @@ def _executors(backend):
 @pytest.mark.parametrize("layers,P,backend", [
     (2, 16, "digital"), (6, 8, "emulator"), (6, 32, "digital")])
 def test_model_prefill_decode_match_reference_f32(layers, P, backend):
-    B, G = 2, 3
-    rcfg = ref_reduced(ref_get_config("gemma3-1b"), layers=layers)
-    tcfg = reduced(get_config("gemma3-1b"), layers=layers)
-    assert tcfg == type(tcfg)(**{f: getattr(rcfg, f) for f in tcfg.__dataclass_fields__
-                                 if f != "analog"}, analog=tcfg.analog)
-    rp = ref_init_params(jax.random.PRNGKey(0), RM.model_schema(rcfg))
-    tp = params_from_numpy(tree_np(rp), device="cpu")
-    rpc = RefPcfg(compute_dtype="float32", attn_block_kv=min(1024, P))
-    tpc = ParallelConfig(compute_dtype="float32", attn_block_kv=min(1024, P))
-    tokens = np.random.default_rng(1).integers(0, rcfg.vocab_size, (B, P))
-    rex, tex = _executors(backend)
-    rctx = ref_hook(rex.hook) if rex else ref_hook(None)
-    tctx = use_dense_hook(tex.hook) if tex else use_dense_hook(None)
-
-    with rctx:
-        pf = jax.jit(lambda t: RM.prefill(rp, t, cfg=rcfg, pcfg=rpc,
-                                          compute_dtype=jnp.float32))
-        dec = jax.jit(lambda t, c, pos: RM.decode_step(
-            rp, t, c, pos, cfg=rcfg, pcfg=rpc, compute_dtype=jnp.float32))
-        rl, rcache = pf(jnp.asarray(tokens, jnp.int32))
-        cache = RM.zeros_cache(RM.model_cache_schema(rcfg, B, P + G,
-                                                     dtype=jnp.float32))
-        cache = jax.tree.map(_ref_splice, cache, rcache)
-        r_logits, r_toks = [np.asarray(rl)], [np.asarray(jnp.argmax(rl, -1))]
-        tok = jnp.argmax(rl, -1)[:, None].astype(jnp.int32)
-        for i in range(G):
-            rl, cache = dec(tok, cache, jnp.asarray(P + i, jnp.int32))
-            r_logits.append(np.asarray(rl))
-            r_toks.append(np.asarray(jnp.argmax(rl, -1)))
-            tok = jnp.argmax(rl, -1)[:, None].astype(jnp.int32)
-
-    with torch.no_grad(), tctx:
-        tl, tcache = TM.prefill(tp, torch.from_numpy(tokens), cfg=tcfg,
-                                pcfg=tpc, compute_dtype=torch.float32)
-        cache = TM.zeros_cache(TM.model_cache_schema(tcfg, B, P + G,
-                                                     dtype=torch.float32), "cpu")
-        cache = _splice_tree(cache, tcache)
-        t_logits, t_toks = [tl.numpy()], [tl.argmax(-1).numpy()]
-        tok = tl.argmax(-1)[:, None]
-        for i in range(G):
-            tl, cache = TM.decode_step(tp, tok, cache, P + i, cfg=tcfg,
-                                       pcfg=tpc, compute_dtype=torch.float32)
-            t_logits.append(tl.numpy())
-            t_toks.append(tl.argmax(-1).numpy())
-            tok = tl.argmax(-1)[:, None]
-
-    for step, (g, w) in enumerate(zip(t_logits, r_logits)):
-        np.testing.assert_allclose(g, w, rtol=1e-4,
-                                   atol=1e-4 * float(np.abs(w).max()),
-                                   err_msg=f"step {step}")
-    np.testing.assert_array_equal(np.stack(t_toks), np.stack(r_toks))
-
-
-# bf16 end to end: both packages round activations to bf16 after every op,
-# but a matmul's f32 result can round to the neighbouring bf16 value when
-# the two frameworks sum in another order.  Digitally that stays an ulp
-# (measured: at most 0.0067 of the logits' max |value| over 3 steps and 2
-# seeds).  On the emulator backend one such ulp is amplified: the
-# gate-overdrive drive map sends a zero activation to 0 V and any nonzero
-# one to at least v_th (0.4 of full scale), and a bf16 gelu output that is
-# exactly 0 on one side and tiny on the other (tanh saturating at a
-# threshold an ulp away) moves that row's analog mlp.down output by O(1).
-# Measured: at most 0.37 of the logits' max |value| over the same steps
-# and seeds, with identical tokens.  The bounds are those measurements
-# rounded up; f32 parity of the same path is case (a).
-BF16_REL = {"digital": 0.02, "emulator": 0.5}
+    model_parity_f32("gemma3-1b", layers, P, backend)
 
 
 @pytest.mark.parametrize("backend", sorted(BF16_REL))
 def test_serve_session_end_to_end_bf16(backend):
-    from repro.launch.serve import ServeSession as RefSession
-    rex, tex = _executors(backend)
-    rs = RefSession("gemma3-1b", reduced=True, reduced_layers=2, batch=2,
-                    prompt_len=16, gen=3, seed=0, executor=rex)
-    rout = rs.generate()
-    ts = ServeSession("gemma3-1b", reduced=True, reduced_layers=2, batch=2,
-                      prompt_len=16, gen=3, seed=0, executor=tex,
-                      device="cpu", params=params_from_numpy(
-                          tree_np(rs.params), device="cpu"),
-                      prompt=torch.tensor(np.asarray(rs.batch["tokens"])))
-    assert sorted(ts.sites()) == sorted(rs.sites())
-    tout = ts.generate()
-    assert tout["tokens"].shape == rout["tokens"].shape == (2, 3)
-    assert tout["logits"].shape == rout["logits"].shape
-    assert np.isfinite(tout["logits"]).all()
-    # the first token comes from the prefill logits alone
-    np.testing.assert_array_equal(tout["tokens"][:, 0], rout["tokens"][:, 0])
-    scale = float(np.abs(rout["logits"]).max())
-    err = float(np.abs(tout["logits"] - rout["logits"]).max())
-    assert err <= BF16_REL[backend] * scale, (err, scale)
+    serve_parity_bf16("gemma3-1b", 2, backend)
 
 
 def test_serve_cli_flags_of_unported_subsystems_raise():
@@ -220,7 +95,7 @@ print('MISSING', [m for m in NEW if m not in sys.modules])
     new += ["repro_torch.nonideal", "repro_torch.core.prng",
             "repro_torch.core.deployment", "repro_torch.launch.quickstart",
             "repro_torch.kernels.emulator_block.ops",
-            "repro_torch.kernels._build"]
+            "repro_torch.kernels._build", "repro_torch.models.ssm"]
     new += [f"repro_torch.kernels.{k}.{m}"
             for k in ("xbar_mac", "flash_attention", "linear_scan")
             for m in ("ops", "ref", k)]
