@@ -98,14 +98,42 @@ JAX or of the JAX package.  Phases (any failure exits non-zero):
      prefill ms, decode ms a step, peak memory; then, digital, fp32, TF32
      off, prefill + 3 decode steps against one forward over the same
      tokens (rtol 1e-3, atol 1e-3 of the logits' scale)
- 10. a JSON ``kernels`` line, then the card line, then the result line.
+ 10. the serving plane (``launch.batching``, ``obs``), telemetry on:
+     (a) gemma3-1b at full width, depth 2, its MLPs on the phase-3 net
+     (6 sites, B1 fp32), through an 8-slot ``ContinuousBatchEngine``
+     (max_len 96, pages of 16): 16 requests, prompts of 16-64 tokens
+     drawn from the seed, 16 new tokens each, submitted through the
+     ``AsyncBatchServer`` in two waves of 8 (the second after 4 ticks),
+     each request's tokens against a batch-1 ``ServeSession.generate``
+     on the same params and states; one mid-run tick's logits against
+     its rows decoded one at a time (the gap printed); the same requests
+     through a digital engine on the same params, against batch-1
+     sessions and with its tick's gap, printed; B1's first tick
+     call at each MLP shape (M = 8) held against its plain version; (b)
+     4 requests through a packed-prefill engine against packed-solo
+     runs; (c) a ``RecompileSentinel`` over (a); (d) (a)'s telemetry
+     snapshot and a ``ServeSession``'s through ``tools/
+     check_telemetry.py`` (``serve`` and ``session`` profiles); (e) the
+     same requests with telemetry off and on, in turns: the same tokens,
+     each run's tokens/s; (f) falcon-mamba-7b (digital, depth 2) through
+     a 4-slot engine, 8 requests, prompts of 64-256, 8 new tokens: bulk
+     (B6 at every prefill, its first call held bit for bit) against
+     batch-1 sessions, and packed (slot reuse, rows zeroed at admission)
+     against packed-solo runs (against the sessions printed).  B1's tick
+     calls are also launched one row at a time (bit-equality printed).  Prints requests/s, generated tokens/s, TTFT and latency
+     p50/p90 (the snapshot's histogram buckets and the requests' own
+     clocks), the median tick, the mean occupancy, B1's and B6's
+     launches on the engine runs, peak memory; a JSON ``serving`` line
+ 11. a JSON ``kernels`` line, then the card line, then the result line.
      The B2, B3 and B6 rows' ``ms`` is the kernel alone (B2, B3 on weights
      packed once); their ``call_ms`` is the whole call a user makes, which
      also packs the weights on the host (B2, B3) or folds h0 (B6).  Every
      other row's ``ms`` is the call.  B1's and B6's records carry their
      launches on phase 9's serves (``model_launches``) and their path
      calls (``model_path``: B1's two MLP shapes; B6's per serve, with its
-     times and memory).
+     times and memory), and phase 10's engine runs (``engine_launches``,
+     also counted in ``launches``; ``engine_path``: B1's tick calls, B6's
+     first prefill call).
 """
 from __future__ import annotations
 
@@ -923,7 +951,11 @@ def main() -> None:
     rec = recurrent_phase(dev, card, npz)
     torch.cuda.empty_cache()
 
-    # ---- phase 10: the kernels line --------------------------------------
+    # ---- phase 10: the serving plane ---------------------------------------
+    serv = serving_phase(dev, card, npz)
+    torch.cuda.empty_cache()
+
+    # ---- phase 11: the kernels line --------------------------------------
     ebk = "emulator_block/emulator_block.py:"
     b1_head = next(r for r in b1_shapes if r["shape"].startswith("mlp.up")
                    and r["shape"].endswith(" M=4"))
@@ -932,10 +964,11 @@ def main() -> None:
     src = "emulator_block/csrc/"
     kernels = [
         entry("emulator_block_unified", src + "emulator_block_unified.cu",
-              ebk + "295", b1_launches,
-              max(max_abs["B1"], ni["b1_err"], rec["b1_err"]),
+              ebk + "295", b1_launches + serv["b1"],
+              max(max_abs["B1"], ni["b1_err"], rec["b1_err"], serv["b1_err"]),
               b1_head, b1_shapes, nonideal_launches=ni["b1"],
-              model_launches=rec["b1"], model_path=rec["b1_rows"]),
+              model_launches=rec["b1"], model_path=rec["b1_rows"],
+              engine_launches=serv["b1"], engine_path=serv["b1_rows"]),
         entry("emulator_block_unified (bf16 mode)",
               src + "emulator_block_unified.cu", ebk + "295", b1_bf16_launches,
               max_abs["B1 bf16"], b1_bf16_head, b1_bf16_shapes),
@@ -951,9 +984,13 @@ def main() -> None:
               slow_vs_fast_volts_err=ni["b3_slow_err"]),
         b4, b5, b6,
     ]
-    b6["max_abs_err"] = max(b6["max_abs_err"], rec["b6_err"])
+    b6["max_abs_err"] = max(b6["max_abs_err"], rec["b6_err"], serv["b6_err"])
     b6["model_launches"] = rec["b6"]
     b6["model_path"] = rec["rows"]
+    b6["launches"] += serv["b6"]
+    b6["engine_launches"] = serv["b6"]
+    b6["engine_path"] = serv["rows"][1:]
+    print(json.dumps({"serving": serv["rows"][0]}), flush=True)
     print(f"[done] {time.perf_counter() - t_start:.1f} s", flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
@@ -1656,6 +1693,558 @@ def recurrent_phase(dev, card, npz):
         torch.cuda.empty_cache()
     print(f"[recurrent] phase took {time.perf_counter() - t_phase:.1f} s",
           flush=True)
+    return out
+
+
+# phase 10's engine serve: gemma3-1b at full width, depth 2, its MLPs on
+# the phase-3 net; 16 requests with prompt lengths drawn from the seed in
+# [16, 64], 16 new tokens each, through an 8-slot engine (max_len 96,
+# 16-position pages), submitted in two waves of 8 through the async server
+SERVE_SLOTS, SERVE_MAX_LEN, SERVE_PAGE = 8, 96, 16
+SERVE_N, SERVE_WAVE, SERVE_NEW, SERVE_PROMPT = 16, 8, 16, (16, 64)
+SERVE_MID_TICK = 8           # the tick whose rows are decoded one at a time
+SERVE_TURNS = 2              # telemetry off / on runs, in turns
+SERVE_PACKED = 4             # requests through the packed engine
+# (f): falcon-mamba-7b, digital, full width, depth 2, through a 4-slot
+# engine: 8 requests, prompts in [64, 256], 8 new tokens each
+REC_ENGINE = dict(arch="falcon-mamba-7b", layers=2, slots=4, n=8,
+                  prompt=(64, 256), new=8)
+
+
+def _row_cache(cache, i):
+    """Row ``i`` of an engine cache as a batch-1 cache (copies): the
+    stacked periods' leaves are (n_periods, B, ...), the tail's (B, ...)."""
+    def walk(node, axis):
+        if isinstance(node, dict):
+            return {k: walk(v, axis) for k, v in node.items()}
+        return node.narrow(axis, i, 1).clone()
+    return {"scan": walk(cache["scan"], 1), "tail": walk(cache["tail"], 0)}
+
+
+def _hist_quantile(series, q):
+    """The upper edge of the bucket that holds quantile ``q`` of a snapshot
+    histogram series (Prometheus' reading; +Inf past the last edge)."""
+    buckets, counts = series["buckets"], series["bucket_counts"]
+    need, run = q * series["count"], 0
+    for edge, c in zip(list(buckets) + [float("inf")], counts):
+        run += c
+        if run >= need:
+            return edge
+    return float("inf")
+
+
+class _StepSpy:
+    """Spy on a session's step functions, as an engine calls them: counts
+    the prefill and decode calls, and keeps the inputs (each row's cache
+    as a batch-1 cache) and logits of decode call ``SERVE_MID_TICK``."""
+
+    def __init__(self, sess):
+        self.sess, self.calls, self.mid = sess, {"prefill": 0, "decode": 0}, {}
+        self.real = (sess._prefill_step, sess._decode_step)
+
+    def install(self):
+        real_pre, real_dec = self.real
+
+        def prefill(params, b):
+            self.calls["prefill"] += 1
+            return real_pre(params, b)
+
+        def decode(params, tok, cache, pos):
+            self.calls["decode"] += 1
+            if self.calls["decode"] != SERVE_MID_TICK:
+                return real_dec(params, tok, cache, pos)
+            self.mid["in"] = (tok.clone(), pos.clone())
+            self.mid["rows"] = [_row_cache(cache, i)
+                                for i in range(tok.shape[0])]
+            logits, c = real_dec(params, tok, cache, pos)
+            self.mid["logits"] = logits.clone()
+            return logits, c
+
+        self.sess._prefill_step, self.sess._decode_step = prefill, decode
+
+    def remove(self):
+        self.sess._prefill_step, self.sess._decode_step = self.real
+
+
+def _against_sessions(sess, prompts, outs, new, states):
+    """Each prompt through a batch-1 ``generate`` of ``sess`` on
+    ``states``, against the engine's tokens ``outs``; prints and returns
+    the mismatches."""
+    import numpy as np
+    import torch
+    mism = []
+    for i, (p, o) in enumerate(zip(prompts, outs)):
+        sess.batch = {"tokens": torch.as_tensor(p[None], device=sess.device)}
+        sess.P, sess.G = len(p), new
+        ref = sess.generate(states=states)["tokens"][0]
+        if not np.array_equal(ref, o):
+            mism.append((i, ref.tolist(), o.tolist()))
+    print(f"[serving] {sess.cfg.name} engine tokens equal batch-1 sessions "
+          f"for {len(prompts) - len(mism)} of {len(prompts)} requests",
+          flush=True)
+    for i, ref, got in mism:
+        print(f"[serving]   request {i}: session {ref} engine {got}",
+              flush=True)
+    return mism
+
+
+def _tick_gap(sess, mid, states, card):
+    """The largest |logit| gap between the recorded tick's rows and the
+    same rows decoded one at a time (batch 1, from the same cache rows)."""
+    import torch
+    tok, pos = mid["in"]
+    real_dec = sess._decode_step
+    gaps = []
+    for i in range(tok.shape[0]):
+        with torch.no_grad(), sess._bound(states):
+            li, _ = real_dec(sess.params, tok[i:i + 1], mid["rows"][i],
+                             pos[i:i + 1])
+        gaps.append(float((li[0] - mid["logits"][i]).abs().max()))
+    scale = float(mid["logits"][:, :sess.cfg.vocab_size].abs().max())
+    print(f"[serving] tick {SERVE_MID_TICK} (positions {pos.tolist()}): max "
+          f"|logit| gap of its {tok.shape[0]} rows decoded one at a time "
+          f"{max(gaps):.3e} of a {scale:.3e} scale (per row "
+          f"{', '.join(f'{g:.2e}' for g in gaps)}); zero: {max(gaps) == 0.0} "
+          f"[{card}]", flush=True)
+    return max(gaps)
+
+
+class _Ticks:
+    """Spy on an engine's ``step``: each tick's host time (a tick ends with
+    its argmax read to the host, so this is its whole time)."""
+
+    def __init__(self, eng):
+        self.ms, self._real = [], eng.step
+
+        def step():
+            t0 = time.perf_counter()
+            out = self._real()
+            self.ms.append((time.perf_counter() - t0) * 1e3)
+            return out
+
+        eng.step = step
+
+
+def _serve_waves(eng, prompts, new, wave, ticks):
+    """Submit ``prompts`` through an ``AsyncBatchServer`` in waves of
+    ``wave``, each after the engine has run 4 more ticks (the earlier
+    waves still decoding); returns the tokens in submit order and the
+    wall seconds from the first submit to the last result."""
+    from repro_torch.launch.batching import AsyncBatchServer
+    t0 = time.perf_counter()
+    with AsyncBatchServer(eng) as srv:
+        futs = []
+        for k in range(0, len(prompts), wave):
+            if k:
+                mark, deadline = len(ticks.ms) + 4, time.time() + 300
+                while len(ticks.ms) < mark and any(not f.done() for f in futs):
+                    if time.time() > deadline:
+                        fail("the engine made no progress for 300 s")
+                    time.sleep(0.002)
+            futs += [srv.submit(p, new) for p in prompts[k:k + wave]]
+        outs = [f.result(timeout=900) for f in futs]
+    return outs, time.perf_counter() - t0
+
+
+def serving_phase(dev, card, npz):
+    """Phase 10: the serving plane (``launch.batching``) at full width on
+    the card, telemetry on.  (a) gemma3-1b (depth 2, MLPs on the phase-3
+    net: 6 sites, B1 fp32) through an 8-slot ``ContinuousBatchEngine``,
+    16 requests in two waves through ``AsyncBatchServer``; every request's
+    tokens against a batch-1 ``ServeSession.generate`` of its prompt on
+    the same params and states; one mid-run tick's logits against its
+    rows decoded one at a time; the same two printed for a digital
+    engine on the same params; B1's first tick call at each MLP shape
+    (M = 8) held against its plain version.  (b) packed prefill: 4
+    requests against packed-solo runs.  (c) a ``RecompileSentinel`` over
+    (a).  (d) (a)'s snapshot and a ``ServeSession``'s through
+    ``tools/check_telemetry.py`` (``serve`` / ``session`` profiles).  (e)
+    the same requests with telemetry off, in turns with it on: the same
+    tokens, and each run's tokens/s.  (f) falcon-mamba-7b (digital, depth
+    2) through a 4-slot engine, bulk (B6 at each prefill, its first path
+    call held bit for bit) against batch-1 sessions, packed with slot
+    reuse against packed-solo runs.  Returns B1's and B6's launches on the engine runs
+    (a) and (f), their path-call errors and rows."""
+    import numpy as np
+    import torch
+    sys.path.insert(0, str(ROOT / "tools"))
+    import check_telemetry
+    from repro_torch.configs.base import AnalogConfig
+    from repro_torch.configs.rram_ps32 import CASE_A
+    from repro_torch.core.analog import AnalogExecutor
+    from repro_torch.interop import load_emulator_npz
+    from repro_torch.kernels.emulator_block import emulator_block as eb
+    from repro_torch.kernels.linear_scan import ops as scan_ops
+    from repro_torch.launch.batching import ContinuousBatchEngine
+    from repro_torch.launch.serve import ServeSession
+    from repro_torch.obs import OBS, RecompileSentinel, snapshot, write_snapshot
+    lsm = importlib.import_module("repro_torch.kernels.linear_scan.linear_scan")
+    eb_ops = importlib.import_module("repro_torch.kernels.emulator_block.ops")
+    with open(ROOT / "tools" / "telemetry_schema.json") as f:
+        schema = json.load(f)
+    out = {"b1_err": 0.0, "b1_rows": [], "b6_err": 0.0, "rows": []}
+    errors = []
+    t_phase = time.perf_counter()
+
+    # -- (a) the engine at full width, telemetry on ------------------------
+    ex = AnalogExecutor(AnalogConfig(enabled=True, backend="emulator",
+                                     layers=("mlp",)),
+                        geom=CASE_A, emulator_params=load_emulator_npz(npz, dev))
+    sess = ServeSession("gemma3-1b", reduced=False, reduced_layers=2, batch=1,
+                        prompt_len=SERVE_PROMPT[1], gen=SERVE_NEW, seed=0,
+                        executor=ex, device=dev)
+    cfg = sess.cfg
+    if (cfg.d_model, cfg.d_ff, cfg.vocab_size) != (1152, 6912, 262144):
+        fail("phase 10 did not serve gemma3-1b at full width")
+    rng = np.random.default_rng(0)
+    lens = rng.integers(SERVE_PROMPT[0], SERVE_PROMPT[1] + 1, SERVE_N)
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n in lens]
+    eng = ContinuousBatchEngine(sess, max_slots=SERVE_SLOTS,
+                                max_len=SERVE_MAX_LEN, page_size=SERVE_PAGE)
+    ticks = _Ticks(eng)
+    n_sites = len(sess.sites())         # site discovery: a digital forward
+
+    # spies: the model calls the engine makes, B1's first tick call at each
+    # MLP shape, and the inputs and logits of one mid-run tick
+    spy = _StepSpy(sess)
+    real_b1 = eb_ops.emulator_block_unified_cuda
+    b1_calls = {}
+
+    def recording_b1(aux, g_norm, u01, pos01, **kw):
+        y = real_b1(aux, g_norm, u01, pos01, **kw)
+        key = tuple(g_norm.shape)
+        if u01.shape[0] == SERVE_SLOTS and key not in b1_calls:
+            b1_calls[key] = (aux, g_norm, u01, pos01, kw, y)
+        return y
+
+    OBS.reset()
+    OBS.enable()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    spy.install()
+    eb_ops.emulator_block_unified_cuda = recording_b1
+    try:
+        with RecompileSentinel(session=eng, executor=ex, strict=False,
+                               label="engine") as sent:
+            eng.refresh_states()
+            eb.emulator_block_unified_cuda.launches = 0
+            outs, wall = _serve_waves(eng, prompts, SERVE_NEW, SERVE_WAVE, ticks)
+            b1 = eb.emulator_block_unified_cuda.launches
+    finally:
+        spy.remove()
+        eb_ops.emulator_block_unified_cuda = real_b1
+    peak = torch.cuda.max_memory_allocated(dev)
+    snap = snapshot()
+    want_b1 = n_sites * (spy.calls["prefill"] + spy.calls["decode"])
+    n_ticks = len(ticks.ms)
+    print(f"[serving] gemma3-1b d_model={cfg.d_model} d_ff={cfg.d_ff} "
+          f"vocab={cfg.vocab_size} layers={cfg.num_layers} sites={n_sites}, "
+          f"{SERVE_SLOTS} slots, max_len {SERVE_MAX_LEN}: {SERVE_N} requests "
+          f"(prompts {min(lens)}-{max(lens)}, {SERVE_NEW} new tokens) in two "
+          f"waves; {spy.calls['prefill']} bulk prefills, {spy.calls['decode']} batched "
+          f"decode ticks ({n_ticks} engine steps); B1 launches {b1} (expected "
+          f"{want_b1})", flush=True)
+    if spy.calls["prefill"] != SERVE_N or b1 != want_b1 or not b1:
+        fail(f"B1 launched {b1} times on the engine path, expected {want_b1} "
+             f"({n_sites} sites x {spy.calls['prefill']} prefills + "
+             f"{spy.calls['decode']} ticks)")
+    if len(b1_calls) != 2:
+        fail(f"B1 tick calls recorded at {len(b1_calls)} MLP shapes, expected 2")
+    for key, (aux, gn, u, pos, kw, y) in b1_calls.items():
+        NB, NO, D, H, W = key
+        tag = "mlp.down" if NB * D * H >= cfg.d_ff else "mlp.up"
+        if kw.get("shift") is not None or kw.get(
+                "compute_dtype", torch.float32) != torch.float32:
+            fail(f"engine {tag}: B1 tick call is not the fp32 ideal corner")
+        want = eb.emulator_block_unified_plain(aux, gn, u, pos)
+        label = f"B1 engine {tag} tick call M={u.shape[0]} NB={NB} NO={NO}"
+        err = compare(label, y, want)
+        out["b1_err"] = max(out["b1_err"], err)
+        # the row tile is min(M, 128): a row's result should not depend on M
+        alone = torch.cat([eb.emulator_block_unified_cuda(
+            aux, gn, u[i:i + 1], pos[i:i + 1]) for i in range(u.shape[0])],
+            dim=1)
+        row_free = torch.equal(alone, y)
+        print(f"[serving] {label}: each row launched alone (M = 1) bit-equal "
+              f"to its row at M = {u.shape[0]}: {row_free}", flush=True)
+        ms = cuda_ms(lambda: eb.emulator_block_unified_cuda(aux, gn, u, pos),
+                     iters=10, warmup=2)
+        pms = cuda_ms(lambda: eb.emulator_block_unified_plain(aux, gn, u, pos),
+                      iters=3, warmup=1)
+        O = aux["fcs"][-1][0].shape[1]
+        flat = aux["fcs"][0][0].shape[0]
+        nbytes, gemm, other = unified_work(u.shape[0], NB, NO, D, W, O, flat,
+                                           None)
+        bms, by = bound_ms(nbytes, (gemm + other, FP32_FLOP_S))
+        print(f"[time] {label}: kernel {ms:.3f} ms, plain {pms:.3f} ms, bound "
+              f"{bms:.4f} ms ({by}) [{card}]", flush=True)
+        out["b1_rows"].append(dict(
+            shape=f"engine {tag} M={u.shape[0]} NB={NB} NO={NO}", ms=ms,
+            plain_ms=pms, bound_ms=bms, bound_by=by, bytes=nbytes,
+            flops=gemm + other, max_abs_err=err, rows_alone_equal=row_free))
+        del want, alone
+    b1_calls.clear()
+    out["b1"] = b1
+
+    met = snap["metrics"]
+    (ttft,) = met["serve_request_ttft_seconds"]["series"]
+    (lat,) = met["serve_request_latency_seconds"]["series"]
+    (occ,) = met["serve_batch_occupancy"]["series"]
+    for s, m in ((ttft, "serve_request_ttft_seconds"),
+                 (lat, "serve_request_latency_seconds")):
+        s["buckets"] = met[m]["buckets"]
+    reqs = [r for r in eng.requests.values() if r.status == "done"]
+    exact_ttft = np.array([r.t_first - r.t_submit for r in reqs])
+    exact_lat = np.array([r.t_done - r.t_submit for r in reqs])
+    gen_tok = SERVE_N * SERVE_NEW
+    row = dict(arch=cfg.name, layers=cfg.num_layers, slots=SERVE_SLOTS,
+               max_len=SERVE_MAX_LEN, requests=SERVE_N, new=SERVE_NEW,
+               prompts=[int(n) for n in lens], wall_s=wall,
+               requests_s=SERVE_N / wall, tokens_s=gen_tok / wall,
+               ttft_p50_le=_hist_quantile(ttft, 0.5),
+               ttft_p90_le=_hist_quantile(ttft, 0.9),
+               latency_p50_le=_hist_quantile(lat, 0.5),
+               latency_p90_le=_hist_quantile(lat, 0.9),
+               ttft_p50=float(np.percentile(exact_ttft, 50)),
+               ttft_p90=float(np.percentile(exact_ttft, 90)),
+               latency_p50=float(np.percentile(exact_lat, 50)),
+               latency_p90=float(np.percentile(exact_lat, 90)),
+               tick_ms_median=float(np.median(ticks.ms)),
+               occupancy_mean=occ["sum"] / occ["count"],
+               b1_launches=b1, peak_gib=peak / 2**30)
+    print(f"[serving] engine: {wall:.3f} s, {row['requests_s']:.2f} requests/s, "
+          f"{row['tokens_s']:.1f} generated tokens/s; TTFT p50 "
+          f"{row['ttft_p50'] * 1e3:.1f} ms / p90 {row['ttft_p90'] * 1e3:.1f} ms "
+          f"(histogram buckets le {row['ttft_p50_le']:g} / "
+          f"{row['ttft_p90_le']:g} s); latency p50 {row['latency_p50'] * 1e3:.1f}"
+          f" ms / p90 {row['latency_p90'] * 1e3:.1f} ms (le "
+          f"{row['latency_p50_le']:g} / {row['latency_p90_le']:g} s); median "
+          f"tick {row['tick_ms_median']:.2f} ms; mean occupancy "
+          f"{row['occupancy_mean']:.2f} of {SERVE_SLOTS}; peak memory "
+          f"{row['peak_gib']:.2f} GiB [{card}]", flush=True)
+
+    # (c) no rebuild past the first: each watched count grew at most once
+    worst = {}
+    for k, v in sent.new_counts.items():
+        kind = k.split("[")[0]
+        worst[kind] = max(worst.get(kind, 0), v)
+    print(f"[serving] sentinel over (a): most new builds per watched count "
+          f"{worst}; ok {sent.ok}", flush=True)
+    if not sent.ok:
+        errors.append(f"the engine rebuilt past its first build: "
+                      f"{sent.violations}")
+
+    # (d) the engine's snapshot through the reference's checker
+    snap_path = ROOT / "build" / "phase10_engine_telemetry.json"
+    write_snapshot(str(snap_path))
+    rc = check_telemetry.main([str(snap_path), "--profile", "serve"])
+    if rc != 0:
+        errors.append("the engine's telemetry snapshot fails the serve profile")
+
+    # (a) each request against a batch-1 ServeSession on the same params
+    # and states; then the mid-run tick against its rows one at a time
+    states = eng._st()
+    mism = _against_sessions(sess, prompts, outs, SERVE_NEW, states)
+    if mism:
+        errors.append(f"{len(mism)} engine requests differ from their "
+                      "batch-1 sessions")
+    row["tick_row_gap"] = _tick_gap(sess, spy.mid, states, card)
+
+    # the same requests through a digital engine on the same params (no
+    # executor: nothing couples a row to its batch-mates but the kernels)
+    dsess = ServeSession("gemma3-1b", reduced=False, reduced_layers=2,
+                         batch=1, prompt_len=SERVE_PROMPT[1], gen=SERVE_NEW,
+                         device=dev, params=sess.params)
+    dspy = _StepSpy(dsess)
+    dspy.install()
+    try:
+        douts = ContinuousBatchEngine(
+            dsess, max_slots=SERVE_SLOTS, max_len=SERVE_MAX_LEN,
+            page_size=SERVE_PAGE).run(prompts, SERVE_NEW)
+    finally:
+        dspy.remove()
+    print("[serving] the same requests, digital:", flush=True)
+    row["digital_mismatches"] = len(_against_sessions(dsess, prompts, douts,
+                                                      SERVE_NEW, {}))
+    row["digital_tick_row_gap"] = _tick_gap(dsess, dspy.mid, {}, card)
+    del dsess, dspy, douts
+
+    # (d) a ServeSession's snapshot through the session profile
+    OBS.reset()
+    s1 = ServeSession("gemma3-1b", reduced=False, reduced_layers=2, batch=1,
+                      prompt_len=len(prompts[0]), gen=SERVE_NEW, executor=ex,
+                      device=dev, params=sess.params,
+                      prompt=torch.as_tensor(prompts[0][None], device=dev))
+    with RecompileSentinel(session=s1, executor=ex, strict=False,
+                           label="session"):
+        s1.generate(states=states)
+    snap_path = ROOT / "build" / "phase10_session_telemetry.json"
+    write_snapshot(str(snap_path))
+    if check_telemetry.main([str(snap_path)]) != 0:
+        errors.append("the session's telemetry snapshot fails the session "
+                      "profile")
+    del s1
+
+    # (e) the same requests with telemetry off, in turns with it on
+    tps = {"off": [], "on": []}
+    for turn in range(SERVE_TURNS):
+        for mode in ("off", "on"):
+            OBS.reset()
+            (OBS.enable if mode == "on" else OBS.disable)()
+            e2 = ContinuousBatchEngine(sess, max_slots=SERVE_SLOTS,
+                                       max_len=SERVE_MAX_LEN,
+                                       page_size=SERVE_PAGE)
+            e2.refresh_states(states)
+            t2 = _Ticks(e2)
+            o2, w2 = _serve_waves(e2, prompts, SERVE_NEW, SERVE_WAVE, t2)
+            tps[mode].append(gen_tok / w2)
+            if not all(np.array_equal(a, b) for a, b in zip(o2, outs)):
+                errors.append(f"telemetry {mode} (turn {turn}) changed tokens")
+            if mode == "off" and snapshot()["metrics"]:
+                errors.append("telemetry off recorded metrics")
+            del e2
+    OBS.disable()
+    OBS.reset()
+    row["tokens_s_on"], row["tokens_s_off"] = tps["on"], tps["off"]
+    print(f"[serving] generated tokens/s in turns, telemetry off "
+          f"{', '.join(f'{v:.1f}' for v in tps['off'])}; on "
+          f"{', '.join(f'{v:.1f}' for v in tps['on'])}; tokens equal to (a) "
+          f"in every run [{card}]", flush=True)
+
+    # (b) packed prefill: batched against packed-solo runs
+    ep = ContinuousBatchEngine(sess, max_slots=SERVE_SLOTS,
+                               max_len=SERVE_MAX_LEN, page_size=SERVE_PAGE,
+                               prefill_mode="packed")
+    ep.refresh_states(states)
+    pk = prompts[:SERVE_PACKED]
+    half = SERVE_PACKED // 2
+    t0 = time.perf_counter()
+    rids = [ep.submit(p, SERVE_NEW) for p in pk[:half]]
+    for _ in range(int(min(lens[:half])) // 2):
+        ep.step()
+    rids += [ep.submit(p, SERVE_NEW) for p in pk[half:]]
+    ep.drain()
+    packed_s = time.perf_counter() - t0
+    solo = [ep.run([p], SERVE_NEW)[0] for p in pk]
+    same = [np.array_equal(ep.result(r), s) for r, s in zip(rids, solo)]
+    print(f"[serving] packed engine: {SERVE_PACKED} requests (2 admitted "
+          f"mid-prefill) in {packed_s:.3f} s; equal to packed-solo runs "
+          f"{sum(same)} of {SERVE_PACKED}; bulk prefill builds "
+          f"{ep.prefill_traces}, decode builds {ep.decode_traces}", flush=True)
+    if not all(same) or ep.prefill_traces != 0 or ep.decode_traces != 1:
+        errors.append("the packed engine differs from its packed-solo runs")
+    del ep, eng, sess, ex, states
+    torch.cuda.empty_cache()
+
+    # -- (f) falcon-mamba-7b through a 4-slot engine, digital ---------------
+    rc_ = REC_ENGINE
+    fs = ServeSession(rc_["arch"], reduced=False, reduced_layers=rc_["layers"],
+                      batch=1, prompt_len=rc_["prompt"][1], gen=rc_["new"],
+                      seed=0, device=dev)
+    fcfg = fs.cfg
+    flens = rng.integers(rc_["prompt"][0], rc_["prompt"][1] + 1, rc_["n"])
+    fprompts = [rng.integers(0, fcfg.vocab_size, n) for n in flens]
+    fe = ContinuousBatchEngine(fs, max_slots=rc_["slots"],
+                               max_len=rc_["prompt"][1] + rc_["new"])
+    real_scan = scan_ops.linear_scan
+    scan_calls = []
+
+    def recording_scan(a, b, h0=None, **kw):
+        h, h_last = real_scan(a, b, h0, **kw)
+        if not scan_calls:
+            scan_calls.append((a, b, h0, h))
+        return h, h_last
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    scan_ops.linear_scan = recording_scan
+    try:
+        lsm.linear_scan_cuda.launches = 0
+        t0 = time.perf_counter()
+        fouts = fe.run(fprompts, rc_["new"])
+        torch.cuda.synchronize()
+        f_wall = time.perf_counter() - t0
+        b6 = lsm.linear_scan_cuda.launches
+    finally:
+        scan_ops.linear_scan = real_scan
+    fpeak = torch.cuda.max_memory_allocated(dev)
+    n_rec = fcfg.num_layers
+    print(f"[serving] {fcfg.name} d_model={fcfg.d_model} vocab="
+          f"{fcfg.vocab_size} layers={n_rec}: {rc_['n']} requests (prompts "
+          f"{min(flens)}-{max(flens)}, {rc_['new']} new) through a "
+          f"{rc_['slots']}-slot engine in {f_wall:.3f} s "
+          f"({rc_['n'] * rc_['new'] / f_wall:.1f} generated tokens/s); B6 "
+          f"launches {b6} (expected {n_rec * rc_['n']}); peak memory "
+          f"{fpeak / 2**30:.2f} GiB [{card}]", flush=True)
+    if b6 != n_rec * rc_["n"]:
+        fail(f"B6 launched {b6} times on the engine path, expected "
+             f"{n_rec * rc_['n']}")
+    out["b6"] = b6
+    a, b, h0, h = scan_calls.pop()
+    b0 = None if h0 is None else lsm.fold_h0(a, b, h0)
+    want = lsm.linear_scan_plain(a, b, b0)
+    equal = torch.equal(h, want)
+    out["b6_err"] = float((h.float() - want.float()).abs().max())
+    ms = cuda_ms(lambda: scan_ops.linear_scan(a, b, h0), iters=10)
+    Bp, Sp, Dp = a.shape
+    nbytes = 3 * Bp * Sp * Dp * a.element_size()
+    bms, by = bound_ms(nbytes, (2 * Bp * Sp * Dp, FP32_FLOP_S))
+    print(f"[serving] B6 engine prefill call ({Bp}, {Sp}, {Dp}): bit-equal to "
+          f"the plain version {equal}; {ms:.4f} ms, bound {bms:.4f} ms ({by}) "
+          f"[{card}]", flush=True)
+    if not equal:
+        fail("B6's engine path call is not bit-equal to its plain version")
+    out["rows"].append(dict(shape=f"B6 engine {fcfg.name} prefill B={Bp} "
+                            f"S={Sp} D={Dp}", ms=ms, bound_ms=bms,
+                            bound_by=by, max_abs_err=out["b6_err"]))
+    del a, b, h0, h, b0, want
+    fmism, frefs = [], []
+    for i, (p, o) in enumerate(zip(fprompts, fouts)):
+        fs.batch = {"tokens": torch.as_tensor(p[None], device=dev)}
+        fs.P, fs.G = len(p), rc_["new"]
+        frefs.append(fs.generate()["tokens"][0])
+        if not np.array_equal(frefs[-1], o):
+            fmism.append((i, frefs[-1].tolist(), o.tolist()))
+    fp = ContinuousBatchEngine(fs, max_slots=rc_["slots"],
+                               max_len=rc_["prompt"][1] + rc_["new"],
+                               prefill_mode="packed")
+    t0 = time.perf_counter()
+    pouts = fp.run(fprompts, rc_["new"])
+    p_wall = time.perf_counter() - t0
+    psolo = [fp.run([p], rc_["new"])[0] for p in fprompts]
+    # the packed contract (the reference's): packed equals packed-solo, the
+    # slot reuse included; against the bulk sessions it is printed, since
+    # a prompt fed one token a tick runs other products than its prefill
+    pmism = [(i, s_.tolist(), p.tolist()) for i, (s_, p) in
+             enumerate(zip(psolo, pouts)) if not np.array_equal(s_, p)]
+    psess = [i for i, (r, p) in enumerate(zip(frefs, pouts))
+             if not np.array_equal(r, p)]
+    print(f"[serving] {fcfg.name}: bulk engine tokens equal batch-1 sessions "
+          f"for {rc_['n'] - len(fmism)} of {rc_['n']}; packed engine (slot "
+          f"reuse, rows zeroed at admission; {p_wall:.3f} s) equal to "
+          f"packed-solo runs for {rc_['n'] - len(pmism)} of {rc_['n']}, to "
+          f"the batch-1 (bulk) sessions for {rc_['n'] - len(psess)} of "
+          f"{rc_['n']}", flush=True)
+    for i, ref, got in fmism + pmism:
+        print(f"[serving]   request {i}: alone {ref} engine {got}", flush=True)
+    for i in psess:
+        print(f"[serving]   request {i} packed: session {frefs[i].tolist()} "
+              f"engine {pouts[i].tolist()}", flush=True)
+    if fmism or pmism:
+        errors.append(f"{fcfg.name}: {len(fmism)} bulk engine requests differ "
+                      f"from their batch-1 sessions, {len(pmism)} packed ones "
+                      "from their packed-solo runs")
+    row.update(rec_arch=fcfg.name, rec_wall_s=f_wall,
+               rec_tokens_s=rc_["n"] * rc_["new"] / f_wall,
+               rec_packed_s=p_wall, rec_b6_launches=b6,
+               rec_packed_vs_sessions_mismatches=len(psess),
+               rec_peak_gib=fpeak / 2**30)
+    out["rows"].insert(0, row)
+    del fs, fe, fp
+    torch.cuda.empty_cache()
+    print(f"[serving] phase took {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    if errors:
+        fail("; ".join(errors))
     return out
 
 

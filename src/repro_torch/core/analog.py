@@ -44,6 +44,16 @@ per tag while the state stays the same (``_read_plan``), and a new state
 0 the read is the identity up to clamping cells into [g_min, g_max].
 ``DeploymentState.ideal()`` reproduces the plain path bit for bit.  The
 mesh-sharded forward is not ported yet (ROADMAP A11).
+
+Telemetry (``repro_torch.obs``, at the reference's names): the plan and
+state caches' hits and misses, the calibration fit, each matmul's call
+and host-side time, and the builds -- the port compiles nothing, so
+``analog_unified_builds_total`` counts the conductance-plan builds (the
+reference's per-(tag, weight) forward) and ``analog_traces_total`` the
+read-plan builds (what each newly served state costs).  ``builds`` and
+``calls`` are the executor's own counts of the same events, kept whether
+telemetry is on or off; ``RecompileSentinel(executor=...)`` watches
+``builds``.  No instrument reads a tensor or synchronizes the device.
 """
 from __future__ import annotations
 
@@ -73,6 +83,7 @@ from repro_torch.nonideal.perturb import (apply_read_noise, perturb_plan,
 from repro_torch.nonideal.scenario import (Scenario, get_scenario,
                                            scenario_features,
                                            scenario_features_tiled)
+from repro_torch.obs import OBS
 
 BACKENDS = ("digital", "emulator", "circuit", "analytic")
 
@@ -80,6 +91,15 @@ BACKENDS = ("digital", "emulator", "circuit", "analytic")
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def _same_weight(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """``b`` is ``a`` or a view of the same elements: a stacked period's
+    weight is a fresh view ``stack[p]`` on every forward.  The cache
+    holds ``a``, so its memory cannot be reused while the entry lives."""
+    return a is b or (a.data_ptr() == b.data_ptr() and a.shape == b.shape
+                      and a.stride() == b.stride() and a.dtype == b.dtype
+                      and a.device == b.device)
 
 
 class _STMatmul(torch.autograd.Function):
@@ -199,6 +219,10 @@ class AnalogExecutor:
         self._read_calls = 0
         self._sfeat_ent: Optional[tuple] = None
         self.materialize_s: Dict[str, Tuple[float, float]] = {}
+        # per kind (plan, state, read) and tag, the builds; per tag, matmuls
+        self.builds: Dict[str, Dict[str, int]] = {"plan": {}, "state": {},
+                                                  "read": {}}
+        self.calls: Dict[str, int] = {}
         if scenario is None and acfg.scenario:
             scenario = get_scenario(acfg.scenario)
         self._deployment = Deployment(
@@ -315,7 +339,16 @@ class AnalogExecutor:
         plan = self._plan_for(w, tag)
         ent = self._state_cache.get(tag) if tag else None
         if ent is not None and ent[0] is plan and ent[1] is dep:
+            if OBS.enabled:
+                OBS.counter("analog_state_cache_total",
+                            "materialized device-state cache lookups",
+                            tag=tag, event="hit").inc()
             return ent
+        self._count_build("state", tag)
+        if OBS.enabled:
+            OBS.counter("analog_state_cache_total",
+                        "materialized device-state cache lookups",
+                        tag=tag or "<anon>", event="miss").inc()
         sc = dep.scenario
         ep = (self.emulator_params if self.acfg.backend == "emulator"
               else None)
@@ -401,6 +434,11 @@ class AnalogExecutor:
         ent = self._read_cache.get(tag) if tag else None
         if ent is not None and ent[0] is plan and ent[1] is st:
             return ent[2]
+        self._count_build("read", tag)
+        if OBS.enabled:
+            OBS.counter("analog_traces_total",
+                        "read-plan builds of the per-tag forward (one per "
+                        "newly served device state)", tag=tag or "<anon>").inc()
         rplan = plan.with_g(self._read(st), self.acfg).with_perm(st.out_perm)
         if tag:
             self._read_cache[tag] = (plan, st, rplan)
@@ -455,23 +493,63 @@ class AnalogExecutor:
             prior[0, 0], prior[1, 1] = la, lb
             A = torch.cat([A, prior], dim=0)
             rhs = torch.cat([rhs, torch.stack([la * prev[0], lb * prev[1]])])
-        sol = torch.linalg.lstsq(A, rhs[:, None]).solution[:, 0]
-        self.calibration[tag] = (float(sol[0]), float(sol[1]))
+        # on the CPU, torch's default LAPACK routine (gelsy) can round its
+        # last bits differently on two calls with the same inputs; gelsd (an
+        # SVD, as jnp.linalg.lstsq) does not.  CUDA has only gels.
+        sol = torch.linalg.lstsq(
+            A, rhs[:, None],
+            driver="gelsd" if A.device.type == "cpu" else None).solution[:, 0]
+        if OBS.enabled:
+            # RMS residual of the fit over the probe rows (prior rows
+            # excluded), read to the host with the affine in one transfer
+            res = yv_flat * sol[0] + sol[1] - yd_flat
+            a, b, rms = torch.cat([sol, torch.sqrt(torch.mean(res * res))[None]]
+                                  ).tolist()
+            OBS.gauge("analog_calibration_residual",
+                      "RMS residual of the volts->logical affine fit",
+                      tag=tag).set(rms)
+            OBS.gauge("analog_calibration_probes",
+                      "probe budget used by the last calibration fit",
+                      tag=tag).set(xc.shape[0])
+            OBS.counter("analog_calibrations_total",
+                        "calibration fits per tag and start mode", tag=tag,
+                        mode="warm" if prev is not None else "cold").inc()
+        else:
+            a, b = sol.tolist()
+        self.calibration[tag] = (a, b)
         self._last_calib_n = xc.shape[0]
         return self.calibration[tag]
 
     # ------------------------------------------------------------------ #
     def _plan_for(self, w: torch.Tensor, tag: str) -> ConductancePlan:
         """Tile/pad/interleave once per bound weight; rebuilt when the tag
-        is rebound to a different tensor."""
+        is rebound to a different tensor (another view of the same
+        elements is the same weight, ``_same_weight``)."""
         ent = self._plans.get(tag) if tag else None
-        if ent is not None and ent[0] is w:
+        if ent is not None and _same_weight(ent[0], w):
+            if OBS.enabled:
+                OBS.counter("analog_plan_cache_total",
+                            "conductance-plan cache lookups per weight tag",
+                            tag=tag, event="hit").inc()
             return ent[1]
+        self._count_build("plan", tag)
+        if OBS.enabled:
+            OBS.counter("analog_plan_cache_total",
+                        "conductance-plan cache lookups per weight tag",
+                        tag=tag or "<anon>", event="miss").inc()
+            OBS.counter("analog_unified_builds_total",
+                        "per-tag conductance plans (re)built -- each build "
+                        "tiles the weight anew", tag=tag or "<anon>").inc()
         with torch.no_grad():
             plan = build_conductance_plan(w.detach(), self.acfg, self.geom)
         if tag:
             self._plans[tag] = (w, plan)
         return plan
+
+    def _count_build(self, kind: str, tag: str) -> None:
+        per_tag = self.builds[kind]
+        key = tag or "<anon>"
+        per_tag[key] = per_tag.get(key, 0) + 1
 
     def _blocklast_aux(self, eparams: Optional[dict] = None) -> dict:
         """Stage-collapsed emulator weights, cached per params binding."""
@@ -627,8 +705,22 @@ class AnalogExecutor:
         ``state`` overrides the tag's ideal state."""
         lead = x.shape[:-1]
         x2 = x.reshape(-1, x.shape[-1]).float()
+        t0 = time.perf_counter() if OBS.enabled else 0.0
         st = state if state is not None else self.state_for(tag, w)
         y = _STMatmul.apply(self, tag, x2, w, st)
+        key = tag or "<anon>"
+        self.calls[key] = self.calls.get(key, 0) + 1
+        if OBS.enabled:
+            # the port runs every call eagerly (mode "eager"); the time is
+            # the host's until the launches return, not the card's: no
+            # synchronization is added here
+            OBS.histogram("analog_matmul_seconds",
+                          "analog matmul host-side latency, launches "
+                          "included (no device sync)", mode="eager").observe(
+                              time.perf_counter() - t0)
+            OBS.counter("analog_matmul_calls_total",
+                        "analog matmul calls per tag and dispatch mode",
+                        tag=key, mode="eager").inc()
         return y.reshape(*lead, w.shape[1]).to(x.dtype)
 
     # ------------------------------------------------------------------ #

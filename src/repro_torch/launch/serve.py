@@ -34,14 +34,20 @@ analog: a tiled corner needs sites that share one tile lattice (e.g.
 ``ServeSession`` builds the model once, discovers every analog dense()
 call site (keys ``"<tag>#<ordinal>"`` for tail layers and
 ``"dec.<period>:<tag>#<ordinal>"`` for stacked periods, as in the
-reference) and serves each site with its ``DeploymentState``.  The
-reference's mesh, device-count and telemetry flags raise
-``NotImplementedError`` naming their ROADMAP item.
+reference) and serves each site with its ``DeploymentState``.
+``--telemetry [PATH]`` enables ``repro_torch.obs.OBS`` for the run and
+writes its JSON snapshot to PATH (stdout for ``-`` or no PATH), the
+generate watched by a ``RecompileSentinel``.  The reference's mesh and
+device-count flags raise ``NotImplementedError`` naming their ROADMAP
+item.  Many requests with their own lengths and arrivals are served one
+level up, by ``launch.batching``.
 """
 from __future__ import annotations
 
 import argparse
 import contextlib
+import itertools
+import json
 import time
 from typing import Dict, List, Optional
 
@@ -49,6 +55,11 @@ import torch
 
 from repro_torch import DeviceLike, resolve_device
 from repro_torch.models.common import fold_seed
+from repro_torch.obs import OBS
+
+# per-process serving call-site ordinal: the telemetry series of two
+# sessions of one arch stay apart
+_SESSION_IDS = itertools.count()
 
 
 def _derived_seed(seed: int, purpose: str) -> int:
@@ -89,7 +100,12 @@ class ServeSession:
     ``generate()`` runs prefill + decode and returns tokens, per-step
     logits and timings.  With ``executor=None`` the session serves the
     plain digital model.  ``params``/``prompt`` override the seeded ones
-    (the parity tests pass the reference's)."""
+    (the parity tests pass the reference's).
+
+    ``prefill_traces`` / ``decode_traces`` stand for the reference's jit
+    traces, which a ``RecompileSentinel(session=...)`` watches: the port
+    compiles nothing, so each counts the one setup of its step at the
+    first generate and stays at 1."""
 
     def __init__(self, arch: str, *, reduced: bool = True,
                  reduced_layers: Optional[int] = None, batch: int = 4,
@@ -127,10 +143,16 @@ class ServeSession:
         self.batch = {"tokens": prompt.to(self.device, torch.int64)}
         self._sample_gen = torch.Generator(device=self.device)
         self._sample_gen.manual_seed(_derived_seed(seed, "sample"))
+        # telemetry identity of this serving call site: every
+        # session-level metric series carries site=<this>
+        self.site = f"{arch}#{next(_SESSION_IDS)}"
         self._prefill_step = S.make_prefill_step(cfg, pcfg)
         self._decode_step = S.make_decode_step(cfg, pcfg)
         self._sites: Optional[Dict[str, torch.Tensor]] = None
         self._last_states: Optional[dict] = None
+        self._steps_built = False
+        self.prefill_traces = 0
+        self.decode_traces = 0
 
     # ------------------------------------------------------------------ #
     def sites(self) -> Dict[str, torch.Tensor]:
@@ -153,7 +175,14 @@ class ServeSession:
 
     def states(self) -> Dict[str, object]:
         """One ``DeploymentState`` per call site."""
-        return {sk: self.ex.state_for(sk, w) for sk, w in self.sites().items()}
+        sts = {sk: self.ex.state_for(sk, w) for sk, w in self.sites().items()}
+        if OBS.enabled:
+            for sk in sts:
+                OBS.counter("serve_state_swaps_total",
+                            "DeploymentStates materialized and served, per "
+                            "analog call site",
+                            site=self.site, call_site=sk).inc()
+        return sts
 
     def save_deployment(self, path: str) -> str:
         """Write the last-served (or current) per-site states and the
@@ -174,6 +203,27 @@ class ServeSession:
         stack.enter_context(self.ex.bound_states(binding))
         return stack
 
+    def _build_steps(self):
+        """Count the steps' setup at the first generate (see the class
+        docstring)."""
+        for step in ("prefill", "decode"):
+            setattr(self, f"{step}_traces",
+                    getattr(self, f"{step}_traces") + 1)
+            if OBS.enabled:
+                OBS.counter("serve_traces_total",
+                            "builds of the serving steps (a healthy sweep "
+                            "holds this at 1 per step)",
+                            site=self.site, step=step).inc()
+        self._steps_built = True
+
+    def _prefill(self, b, states):
+        with self._bound(states):
+            return self._prefill_step(self.params, b)
+
+    def _decode(self, tok, cache, pos, states):
+        with self._bound(states):
+            return self._decode_step(self.params, tok, cache, pos)
+
     # ------------------------------------------------------------------ #
     def _next_token(self, logits: torch.Tensor) -> torch.Tensor:
         if self.temperature > 0:
@@ -187,6 +237,8 @@ class ServeSession:
         array, "logits": (G, B, V) float32 array, "prefill_s",
         "decode_s"}`` (seconds, synchronized with the device)."""
         from repro_torch.models import model as M
+        if not self._steps_built:
+            self._build_steps()
         if states is None:
             states = self.states() if self.ex is not None else {}
         self._last_states = states
@@ -195,10 +247,14 @@ class ServeSession:
 
         _sync(dev)
         t0 = time.perf_counter()
-        with self._bound(states):
-            logits, pcache = self._prefill_step(self.params, self.batch)
+        logits, pcache = self._prefill(self.batch, states)
         _sync(dev)
         t_prefill = time.perf_counter() - t0
+        if OBS.enabled:
+            OBS.histogram("serve_prefill_seconds",
+                          "full prefill wall clock (synchronized) per "
+                          "serving call site", site=self.site,
+                          arch=self.cfg.name).observe(t_prefill)
 
         cache = M.zeros_cache(M.model_cache_schema(self.cfg, B, P + G), dev)
         cache = _splice_tree(cache, pcache)
@@ -208,14 +264,30 @@ class ServeSession:
         out_logits: List[torch.Tensor] = [logits]
         t0 = time.perf_counter()
         for i in range(G - 1):
-            with self._bound(states):
-                logits, cache = self._decode_step(self.params, tok, cache,
-                                                  P + i)
+            ts = time.perf_counter() if OBS.enabled else 0.0
+            logits, cache = self._decode(tok, cache, P + i, states)
+            if OBS.enabled:
+                # the host's time until the step's launches return: no
+                # device sync inside the loop (the synchronized total is
+                # serve_decode_seconds)
+                OBS.histogram("serve_decode_step_seconds",
+                              "per-step decode latency, host side (no "
+                              "device sync)", site=self.site,
+                              arch=self.cfg.name).observe(
+                                  time.perf_counter() - ts)
             tok = self._next_token(logits)
             out_tokens.append(tok)
             out_logits.append(logits)
         _sync(dev)
         t_decode = time.perf_counter() - t0
+        if OBS.enabled:
+            OBS.histogram("serve_decode_seconds",
+                          "full decode-loop wall clock (synchronized) per "
+                          "serving call site", site=self.site,
+                          arch=self.cfg.name).observe(t_decode)
+            OBS.counter("serve_tokens_total",
+                        "tokens served (prompt + generated)",
+                        site=self.site, arch=self.cfg.name).inc(B * (P + G))
         return {"tokens": torch.cat(out_tokens, dim=1).cpu().numpy(),
                 "logits": torch.stack(out_logits).float().cpu().numpy(),
                 "prefill_s": t_prefill, "decode_s": t_decode}
@@ -224,7 +296,7 @@ class ServeSession:
 # --------------------------------------------------------------------------- #
 # CLI
 # --------------------------------------------------------------------------- #
-_NOT_PORTED = {"mesh": "A11", "telemetry": "A10", "devices": "A11"}
+_NOT_PORTED = {"mesh": "A11", "devices": "A11"}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -270,9 +342,13 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--state-load", default=None, metavar="NPZ",
                     help="serve the per-site device states of a deployment "
                          "npz (either package's) verbatim")
+    ap.add_argument("--telemetry", nargs="?", const="-", default=None,
+                    metavar="PATH",
+                    help="enable the metrics registry for this run and write "
+                         "its JSON snapshot on exit -- to PATH, or to stdout "
+                         "when the flag is given bare or as '-'")
     # reference flags whose subsystems are not ported yet
     ap.add_argument("--mesh", default=None)
-    ap.add_argument("--telemetry", nargs="?", const="-", default=None)
     ap.add_argument("--devices", type=int, default=0)
     return ap
 
@@ -286,6 +362,8 @@ def main(argv: Optional[List[str]] = None):
             raise NotImplementedError(
                 f"--{flag.replace('_', '-')} is not ported yet "
                 f"(ROADMAP {item})")
+    if args.telemetry is not None:
+        OBS.enable()
     if args.scenario and args.analog_backend == "digital":
         ap.error("--scenario requires a non-digital --analog-backend")
     if (args.fault_remap or args.age is not None) and not args.scenario:
@@ -347,7 +425,10 @@ def main(argv: Optional[List[str]] = None):
                         prompt_len=args.prompt_len, gen=args.gen,
                         temperature=args.temperature, seed=args.seed,
                         executor=ex, device=device)
-    out = sess.generate(states=loaded_states)
+    from repro_torch.obs import RecompileSentinel
+    with RecompileSentinel(session=sess, executor=ex, strict=False,
+                           label="serve") as sent:
+        out = sess.generate(states=loaded_states)
     B, P, G = args.batch, args.prompt_len, args.gen
     print(f"prefill {B}x{P}: {out['prefill_s'] * 1e3:.1f} ms "
           f"({B * P / out['prefill_s']:.0f} tok/s)")
@@ -358,6 +439,15 @@ def main(argv: Optional[List[str]] = None):
         path = sess.save_deployment(args.state_save)
         print(f"deployment saved: {len(sess._last_states)} call sites "
               f"-> {path}")
+    if args.telemetry is not None:
+        if not sent.ok:
+            print(f"WARNING recompile sentinel tripped: {sent.violations}")
+        from repro_torch.obs import snapshot, write_snapshot
+        if args.telemetry == "-":
+            print(json.dumps(snapshot(), indent=2, sort_keys=True))
+        else:
+            write_snapshot(args.telemetry)
+            print(f"telemetry snapshot -> {args.telemetry}")
     return sess, out
 
 

@@ -142,12 +142,16 @@ def local_attention(q, k, v, window: int):
 
 
 def decode_attention(q, ck, cv, valid_mask, cfg: ArchConfig):
-    """q: (B,1,Hq,D); ck/cv: (B,S,Hkv,D); valid_mask: (S,)."""
+    """q: (B,1,Hq,D); ck/cv: (B,S,Hkv,D); valid_mask: (S,) -- one mask for
+    every row, all at one position -- or (B,S) -- each row its own, at
+    its own position (continuous batching)."""
     B, D = q.shape[0], q.shape[-1]
     g = cfg.num_heads // cfg.num_kv_heads
     qg = q.reshape(B, 1, cfg.num_kv_heads, g, D)
     s = einsum("bqhgd,bkhd->bhgqk", qg * (D ** -0.5), ck).float()
-    s = torch.where(valid_mask[None, None, None, None, :], s, NEG_INF)
+    if valid_mask.dim() == 1:
+        valid_mask = valid_mask[None]
+    s = torch.where(valid_mask[:, None, None, None, :], s, NEG_INF)
     p = torch.softmax(s, dim=-1)
     o = einsum("bhgqk,bkhd->bhgqd", p.to(cv.dtype), cv)
     return o.permute(0, 3, 1, 2, 4).reshape(B, 1, cfg.num_heads, D)
@@ -164,7 +168,9 @@ def attn_mixer(params, x, *, cfg: ArchConfig, pcfg, kind: str,
     """Returns (out (B,S,D), new_cache_or_None).  Cache layout:
       global : {"k","v"}: (B, S_max, Hkv, Dh), position p at slot p
       local  : ring buffer (B, W, Hkv, Dh), slot = p mod W
-    ``pos`` (decode) is the scalar position being written."""
+    ``pos`` (decode) is the position being written: an int, every row at
+    it, or a (B,) tensor, each row at its own (continuous batching: each
+    row writes its own slot and masks its own history)."""
     if kind not in (GLOBAL_ATTN, LOCAL_ATTN):
         raise NotImplementedError(f"attention kind {kind!r} is not ported "
                                   "yet (ROADMAP A9)")
@@ -174,17 +180,20 @@ def attn_mixer(params, x, *, cfg: ArchConfig, pcfg, kind: str,
     dev = x.device
 
     if mode == "decode":
-        pos = int(pos)
-        p2 = torch.full((B, 1), pos, dtype=torch.int64, device=dev)
-        q = apply_rope(q, p2, base)
+        # one path for both forms: an int is every row at that position
+        pos = (pos.to(dev, torch.int64) if isinstance(pos, torch.Tensor)
+               else torch.full((B,), int(pos), dtype=torch.int64, device=dev))
+        pos = pos.expand(B)[:, None]                  # (B, 1)
+        q = apply_rope(q, pos, base)
         k, v = _project_kv(params, x, cfg)
-        k = apply_rope(k, p2, base)
+        k = apply_rope(k, pos, base)
         ck, cv = cache["k"], cache["v"]
         n_slots = ck.shape[1]
-        slot = pos % n_slots
-        ck[:, slot] = k[:, 0].to(ck.dtype)            # in place, see docstring
-        cv[:, slot] = v[:, 0].to(cv.dtype)
-        idx = torch.arange(n_slots, device=dev)
+        slot = pos % n_slots                          # (B, 1)
+        rows = torch.arange(B, device=dev)
+        ck[rows, slot[:, 0]] = k[:, 0].to(ck.dtype)   # in place, see docstring
+        cv[rows, slot[:, 0]] = v[:, 0].to(cv.dtype)
+        idx = torch.arange(n_slots, device=dev)[None, :]
         if kind == GLOBAL_ATTN:
             valid = idx <= pos
         else:

@@ -193,8 +193,9 @@ def prefill(params, tokens, *, cfg: ArchConfig, pcfg,
 
 def decode_step(params, token, cache, pos, *, cfg: ArchConfig, pcfg,
                 compute_dtype=torch.bfloat16):
-    """token: (B,1) int64; pos: int -- the position being written.
-    Returns (logits (B,Vp), cache) -- the cache is updated in place."""
+    """token: (B,1) int64; pos: the position being written, an int (every
+    row) or a (B,) tensor (each row its own).  Returns (logits (B,Vp),
+    cache) -- the cache is updated in place."""
     h, new_cache = forward(params, token, cfg=cfg, pcfg=pcfg, mode="decode",
                            cache=cache, pos=pos, compute_dtype=compute_dtype)
     return compute_logits(params, h, cfg)[:, 0], new_cache

@@ -45,15 +45,16 @@ def test_serve_session_end_to_end_bf16(backend):
 
 
 def test_serve_cli_flags_of_unported_subsystems_raise():
-    """Only the mesh, device-count and telemetry flags are unported; the
-    non-ideal flags are ported and keep the reference's argument checks
+    """Only the mesh and device-count flags are unported (``--telemetry``
+    is ported: ``tests/test_torch_obs.py`` serves it); the non-ideal
+    flags are ported and keep the reference's argument checks
     (``tests/test_torch_deployment.py`` serves them)."""
     from repro_torch.launch import serve
     base = ["--arch", "gemma3-1b", "--reduced", "--device", "cpu"]
-    for flag in (["--mesh", "1,2"], ["--telemetry"], ["--devices", "2"]):
+    for flag in (["--mesh", "1,2"], ["--devices", "2"]):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             serve.main(base + flag)
-    assert sorted(serve._NOT_PORTED) == ["devices", "mesh", "telemetry"]
+    assert sorted(serve._NOT_PORTED) == ["devices", "mesh"]
     for flag in (["--scenario", "stressed"], ["--fault-remap"],
                  ["--age", "10"], ["--conditioned-emulator"],
                  ["--state-save", "x.npz"], ["--state-load", "x.npz"]):
@@ -95,7 +96,10 @@ print('MISSING', [m for m in NEW if m not in sys.modules])
     new += ["repro_torch.nonideal", "repro_torch.core.prng",
             "repro_torch.core.deployment", "repro_torch.launch.quickstart",
             "repro_torch.kernels.emulator_block.ops",
-            "repro_torch.kernels._build", "repro_torch.models.ssm"]
+            "repro_torch.kernels._build", "repro_torch.models.ssm",
+            "repro_torch.launch.batching"]
+    new += ["repro_torch.obs" + m for m in ("", ".trace", ".registry",
+                                            ".export", ".sentinel")]
     new += [f"repro_torch.kernels.{k}.{m}"
             for k in ("xbar_mac", "flash_attention", "linear_scan")
             for m in ("ops", "ref", k)]
