@@ -124,7 +124,40 @@ JAX or of the JAX package.  Phases (any failure exits non-zero):
      p50/p90 (the snapshot's histogram buckets and the requests' own
      clocks), the median tick, the mean occupancy, B1's and B6's
      launches on the engine runs, peak memory; a JSON ``serving`` line
- 11. a JSON ``kernels`` line, then the card line, then the result line.
+ 11. lifetime management and the fleet twin (``nonideal.lifetime``,
+     ``nonideal.sweep``, ``fleet``): (a) the drift walk (t0, 1h, 1d, 1mo)
+     of gemma3-1b's full-width ``mlp.up`` (1152 x 6912, random) on the
+     phase-3 net under bench_lifetime's per-tile corner (prog sigma 0.02
+     -> 0.08 across output groups, stuck-off 0.04, drift nu 0.05),
+     unmitigated, with remap and recalibration, and mitigated (remap,
+     recalibration, the noise-aware retrainer, n 4096, 30 epochs): per
+     checkpoint the error against the
+     ideal device, calib_n, retrained, the fine-tune's seconds, the host
+     ms to materialize the state and the remap's share, B1's launches;
+     one plan build per tag; (b) at (64, 8, 4), calib_n 32, the field
+     retrainer on the phase-3 net beside the conditioned field calibrator
+     on phase 7's conditioned net, which must retrain at deployment only;
+     (c) ``ScenarioSweep`` on ``mlp.up``: 8 draws at 5 levels of prog
+     sigma, B = 4, one build, the mean error non-decreasing in sigma, the
+     stacked draws bit-equal to one draw at a time, B1's stacked call
+     held against its plain version draw by draw; (d) bench_fleet's
+     campaign, 10^5 devices of (128, 16, 8), chunk 256, its BASE corner
+     and SLO rule, on the conditioned net, telemetry on: the SLO floor on
+     512 devices, ``MaintenancePlanner.plan`` (surrogate on 256 probed
+     devices), ``simulate_policy`` for never / always / the plan; one
+     chunk-step build (``RecompileSentinel``), every error finite, the
+     snapshot through ``tools/check_telemetry.py``'s fleet profile, 1,000
+     devices bit-equal at chunk 256 and 64, two B1 launches a chunk; the
+     planner against both baselines at every checkpoint, seconds per full
+     evaluation, devices/s, one chunk's card and host ms beside its B1
+     calls and its draws, peak memory; each chunk B1 call held against
+     its plain version and one device launched alone against its stacked
+     blocks (bit for bit); (e) ``ServeSession.calibrate`` on gemma3-1b at
+     full width, depth 2, 6 sites on the phase-3 net under ``stressed``:
+     cold at deployment, warm at one month (timed), then served twice on
+     the same states (batch 4, prompt 32, 8 tokens): tokens equal, prefill
+     / decode ms; a JSON ``lifetime`` line
+ 12. a JSON ``kernels`` line, then the card line, then the result line.
      The B2, B3 and B6 rows' ``ms`` is the kernel alone (B2, B3 on weights
      packed once); their ``call_ms`` is the whole call a user makes, which
      also packs the weights on the host (B2, B3) or folds h0 (B6).  Every
@@ -133,7 +166,9 @@ JAX or of the JAX package.  Phases (any failure exits non-zero):
      calls (``model_path``: B1's two MLP shapes; B6's per serve, with its
      times and memory), and phase 10's engine runs (``engine_launches``,
      also counted in ``launches``; ``engine_path``: B1's tick calls, B6's
-     first prefill call).
+     first prefill call), and phase 11's (``lifetime_launches`` per part,
+     also counted in ``launches``; ``lifetime_path``: the sweep's stacked
+     call and a fleet chunk's two calls).
 """
 from __future__ import annotations
 
@@ -955,7 +990,11 @@ def main() -> None:
     serv = serving_phase(dev, card, npz)
     torch.cuda.empty_cache()
 
-    # ---- phase 11: the kernels line --------------------------------------
+    # ---- phase 11: lifetime management and the fleet twin -----------------
+    life = lifetime_phase(dev, card, npz, ni["cond_npz"])
+    torch.cuda.empty_cache()
+
+    # ---- phase 12: the kernels line --------------------------------------
     ebk = "emulator_block/emulator_block.py:"
     b1_head = next(r for r in b1_shapes if r["shape"].startswith("mlp.up")
                    and r["shape"].endswith(" M=4"))
@@ -964,11 +1003,14 @@ def main() -> None:
     src = "emulator_block/csrc/"
     kernels = [
         entry("emulator_block_unified", src + "emulator_block_unified.cu",
-              ebk + "295", b1_launches + serv["b1"],
-              max(max_abs["B1"], ni["b1_err"], rec["b1_err"], serv["b1_err"]),
+              ebk + "295",
+              b1_launches + serv["b1"] + sum(life["b1"].values()),
+              max(max_abs["B1"], ni["b1_err"], rec["b1_err"], serv["b1_err"],
+                  life["b1_err"]),
               b1_head, b1_shapes, nonideal_launches=ni["b1"],
               model_launches=rec["b1"], model_path=rec["b1_rows"],
-              engine_launches=serv["b1"], engine_path=serv["b1_rows"]),
+              engine_launches=serv["b1"], engine_path=serv["b1_rows"],
+              lifetime_launches=life["b1"], lifetime_path=life["b1_rows"]),
         entry("emulator_block_unified (bf16 mode)",
               src + "emulator_block_unified.cu", ebk + "295", b1_bf16_launches,
               max_abs["B1 bf16"], b1_bf16_head, b1_bf16_shapes),
@@ -991,6 +1033,7 @@ def main() -> None:
     b6["engine_launches"] = serv["b6"]
     b6["engine_path"] = serv["rows"][1:]
     print(json.dumps({"serving": serv["rows"][0]}), flush=True)
+    print(json.dumps({"lifetime": life["rows"]}), flush=True)
     print(f"[done] {time.perf_counter() - t_start:.1f} s", flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
@@ -1290,6 +1333,7 @@ def nonideal_phase(dev, card, npz, trained, ideal_ms):
     del X, Pf, xte, pte, got, want
     cnpz = build / "chip_smoke_conv4xbar_a_conditioned.npz"
     save_emulator_npz(str(cnpz), cond)
+    out["cond_npz"] = cnpz
     # the tiled corner on mlp.up/gate's lattice: stressed, each tile its
     # own prog and read sigma
     K, N = GEMMA["d_model"], GEMMA["d_ff"]
@@ -2245,6 +2289,604 @@ def serving_phase(dev, card, npz):
           flush=True)
     if errors:
         fail("; ".join(errors))
+    return out
+
+
+# phase 11's sizes: the lifetime walk at full width on gemma3-1b's mlp.up
+# (bench_lifetime's per-tile corner on its lattice); (b) at bench_lifetime's
+# quick size; the sweep's sigma levels; the fleet campaign at
+# bench_fleet's default size, its BASE corner and SLO rule
+LIFE_TAG = "mlp.up"
+LIFE_SMALL = (64, 8, 4)                # (K, N, B), calib_n 32
+SWEEP_SIGMAS = (0.0, 0.02, 0.05, 0.1, 0.2)
+SWEEP_DRAWS = 8
+FLEET_N, FLEET_CHUNK, FLEET_SHAPE = 100_000, 256, (128, 16, 8)
+FLEET_SLO_OVER_FLOOR = 2.0
+FLEET_CHECK_N, FLEET_CHECK_CHUNK = 1_000, 64
+
+
+def _fleet_scenario(nb, no):
+    """bench_lifetime's per-tile aging corner on an (NB, NO) lattice: a
+    programming-sigma gradient 0.02 -> 0.08 across output groups, stuck-off
+    rate 0.04 and drift exponent 0.05 everywhere."""
+    import numpy as np
+    from repro_torch.nonideal import tile_scenarios
+    sig = np.broadcast_to(np.linspace(0.02, 0.08, no), (nb, no))
+    return tile_scenarios(nb, no, name="fleet", prog_sigma=sig,
+                          p_stuck_off=0.04, drift_nu=0.05)
+
+
+def _rel(y, ref):
+    import torch
+    return float(torch.linalg.norm(y.float() - ref) / torch.linalg.norm(ref))
+
+
+def _walk(sched, w, tag, x, ref, label, card):
+    """Drive a LifetimeScheduler checkpoint by checkpoint, printing the
+    error against ``ref``, calib_n, whether it retrained, the fine-tune
+    and materialization times and B1's launches; returns the records."""
+    import torch
+    from repro_torch.kernels.emulator_block import emulator_block as eb
+    ex, recs = sched.ex, []
+    steps = [("t0", 0.0)] + list(sched.timeline)
+    for i, (lab, t) in enumerate(steps):
+        eb.emulator_block_unified_cuda.launches = 0
+        sched._ft_s = 0.0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if i == 0:
+            sched.deploy(w, tag)
+        else:
+            sched.step(w, tag, lab, t)
+        y = ex.matmul(x, w, tag)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        h = sched.history[-1]
+        tot, rem = ex.materialize_s.get(tag, (0.0, 0.0))
+        rec = dict(label=lab, t=t, rel_err=_rel(y, ref),
+                   calib_n=h["calib_n"], retrained=h["retrained"],
+                   finetune_s=sched._ft_s, materialize_ms=tot * 1e3,
+                   remap_ms=rem * 1e3, b1=eb.emulator_block_unified_cuda.launches,
+                   wall_s=wall)
+        recs.append(rec)
+        print(f"[lifetime] {label} {lab}: rel err vs the ideal device "
+              f"{rec['rel_err']:.5f}, calib_n {rec['calib_n']}, retrained "
+              f"{rec['retrained']}, fine-tune {rec['finetune_s']:.2f} s, "
+              f"state materialized in {rec['materialize_ms']:.1f} ms on the "
+              f"host (remap {rec['remap_ms']:.1f} ms), B1 launches "
+              f"{rec['b1']}, checkpoint {wall:.2f} s [{card}]", flush=True)
+        if not all(map(np_isfinite, (rec["rel_err"],))):
+            fail(f"lifetime {label} {lab}: non-finite error")
+    return recs
+
+
+def _stacked_vs_plain(label, aux, gn, u, pos, kw, y, C):
+    """Hold B1's output ``y`` on C states stacked along NO against its plain
+    version on each state's slice of the lattice; returns the max abs
+    error."""
+    from repro_torch.kernels.emulator_block import emulator_block as eb
+    NB, NO = gn.shape[:2]
+    no = NO // C
+    sh = kw.get("shift")
+    M = u.shape[0]
+    yc = y.reshape(2, M, NB, C, no, -1)
+    worst = 0.0
+    for c in range(C):
+        s_c = (None if sh is None or sh.dim() == 1 else
+               sh.reshape(NB, C, no, -1)[:, c].reshape(NB * no, -1))
+        want = eb.emulator_block_unified_plain(
+            aux, gn[:, c * no:(c + 1) * no].contiguous(), u, pos,
+            shift=sh if s_c is None else s_c.contiguous())
+        worst = max(worst, compare(f"{label}, state {c}",
+                                   yc[:, :, :, c].reshape(want.shape), want))
+    return worst
+
+
+def _timed_retrain(sched, fn):
+    """Wrap a retrain callback to record its seconds on ``sched._ft_s``."""
+    import torch
+
+    def retrain(*a):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        p = fn(*a)
+        torch.cuda.synchronize()
+        sched._ft_s += time.perf_counter() - t0
+        return p
+
+    return retrain
+
+
+def lifetime_phase(dev, card, npz, cnpz):
+    """Phase 11: fleet lifetime management and the fleet twin on the card.
+    (a) the drift walk of gemma3-1b's full-width ``mlp.up`` under
+    bench_lifetime's per-tile corner, unmitigated, with remap and
+    recalibration, and mitigated (remap, recalibration, the noise-aware
+    retrainer); (b) the field retrainer and
+    the conditioned field calibrator at (64, 8, 4); (c) ``ScenarioSweep``
+    at full width, stacked and one draw at a time; (d) the 10^5-device
+    maintenance campaign at bench_fleet's size on the conditioned net,
+    telemetry on; (e) ``ServeSession.calibrate`` on gemma3-1b at full
+    width under ``stressed`` at one month.  Returns B1's launches per part
+    and its path rows."""
+    import numpy as np
+    import torch
+    from repro_torch import nonideal as NI
+    from repro_torch.configs.base import AnalogConfig
+    from repro_torch.configs.rram_ps32 import CASE_A
+    from repro_torch.core import prng
+    from repro_torch.core.analog import AnalogExecutor, calibration_probes
+    from repro_torch.core.circuit import CircuitParams
+    from repro_torch.interop import load_emulator_npz
+    from repro_torch.kernels.emulator_block import emulator_block as eb
+    from repro_torch.kernels.emulator_block import ops as eb_ops
+    from repro_torch.launch.serve import ServeSession
+    from repro_torch.obs import RecompileSentinel
+    t_phase = time.perf_counter()
+    acfg = AnalogConfig(enabled=True, backend="emulator", layers=("mlp",))
+    cp = CircuitParams()
+    trained = load_emulator_npz(str(npz), dev)
+    cond = load_emulator_npz(str(cnpz), dev)
+    out = {"b1": {}, "b1_err": 0.0, "b1_rows": [], "rows": {}}
+    errors = []
+
+    def gen(seed):
+        g = torch.Generator(device=dev)
+        g.manual_seed(seed)
+        return g
+
+    # -- (a) the drift walk at full width -----------------------------------
+    t_a = time.perf_counter()
+    K, N = GEMMA["d_model"], GEMMA["d_ff"]
+    w = torch.randn((K, N), generator=gen(1101), device=dev) * K ** -0.5
+    x = torch.randn((4, K), generator=gen(1102), device=dev)
+    exi = AnalogExecutor(acfg, geom=CASE_A, emulator_params=trained)
+    exi.calibrate(calibration_probes(prng.key(9), 128, K, dev), w, LIFE_TAG)
+    ref = exi.matmul(x, w, LIFE_TAG).float()
+    plan = exi._plan_for(w, LIFE_TAG)
+    corner = _fleet_scenario(plan.NB, plan.NO)
+    kf = prng.fold_in(prng.key(0), 2)
+    walks = {}
+    for mode in ("unmitigated", "remap+recalibrate", "mitigated"):
+        ex = AnalogExecutor(acfg, geom=CASE_A, emulator_params=trained)
+        mit = mode != "unmitigated"
+        sched = NI.LifetimeScheduler(ex, corner, remap=mit, recalibrate=mit,
+                                     key=kf, calib_n=128)
+        if mode == "mitigated":
+            sched.retrain = _timed_retrain(sched, NI.make_noise_aware_retrainer(
+                CASE_A, acfg, cp, prng.key(4), n=4096, epochs=30))
+        walks[mode] = _walk(sched, w, LIFE_TAG, x, ref,
+                            f"(a) {mode} {LIFE_TAG} K={K} N={N}", card)
+        print(f"[lifetime] (a) {mode}: plan builds per tag {ex.builds['plan']}",
+              flush=True)
+        if ex.builds["plan"] != {LIFE_TAG: 1}:
+            errors.append(f"(a) {mode}: plan builds {ex.builds['plan']}, "
+                          "expected 1 for the tag")
+        del ex, sched
+        torch.cuda.empty_cache()
+    for mode in ("remap+recalibrate", "mitigated"):
+        dom = [m["rel_err"] < u["rel_err"] for u, m in
+               zip(walks["unmitigated"][1:], walks[mode][1:])]
+        print(f"[lifetime] (a) {mode} lowers the error against the "
+              f"unmitigated walk at every drift checkpoint: {all(dom)} {dom}",
+              flush=True)
+    out["b1"]["walk"] = sum(r["b1"] for v in walks.values() for r in v)
+    out["rows"]["walk"] = walks
+    print(f"[lifetime] (a) B1 launches {out['b1']['walk']}; "
+          f"{time.perf_counter() - t_a:.1f} s [{card}]", flush=True)
+    del exi, w, x, ref
+    torch.cuda.empty_cache()
+
+    # -- (b) the field retrainer and the conditioned field calibrator -------
+    t_b = time.perf_counter()
+    Ks, Ns, Bs = LIFE_SMALL
+    w = torch.randn((Ks, Ns), generator=gen(1201), device=dev) * 0.2
+    x = torch.randn((Bs, Ks), generator=gen(1202), device=dev) * 0.5
+    exc = AnalogExecutor(AnalogConfig(enabled=True, backend="circuit",
+                                      layers=("mlp",)), geom=CASE_A)
+    exc.calibrate(calibration_probes(prng.key(9), 32, Ks, dev), w, "ref")
+    ref = exc.matmul(x, w, "ref").float()       # the young ideal circuit
+    sp = AnalogExecutor(acfg, geom=CASE_A,
+                        emulator_params={})._plan_for(w, "probe")
+    corner = _fleet_scenario(sp.NB, sp.NO)
+    small = {}
+    for mode, params, fn in (
+            ("field", trained, NI.make_field_retrainer(prng.key(4))),
+            ("conditioned", cond,
+             NI.make_conditioned_field_calibrator(prng.key(5)))):
+        ex = AnalogExecutor(acfg, geom=CASE_A, emulator_params=params)
+        sched = NI.LifetimeScheduler(ex, corner, key=kf, calib_n=32)
+        sched.retrain = _timed_retrain(sched, fn)
+        small[mode] = _walk(sched, w, "life", x, ref,
+                            f"(b) {mode} K={Ks} N={Ns}", card)
+        if mode == "conditioned" and [r["retrained"] for r in small[mode]] \
+                != [True, False, False, False]:
+            errors.append("(b) the conditioned walk retrained between "
+                          f"checkpoints: {[r['retrained'] for r in small[mode]]}")
+    for f, c in zip(small["field"], small["conditioned"]):
+        print(f"[lifetime] (b) {f['label']}: per-checkpoint field fine-tunes "
+              f"{f['rel_err']:.5f}, conditioned (deploy-only calibration) "
+              f"{c['rel_err']:.5f} [{card}]", flush=True)
+    out["b1"]["field_and_conditioned"] = sum(
+        r["b1"] for v in small.values() for r in v)
+    out["rows"]["small"] = small
+    print(f"[lifetime] (b) took {time.perf_counter() - t_b:.1f} s", flush=True)
+    del exc, ex, sched
+    torch.cuda.empty_cache()
+
+    # -- (c) ScenarioSweep at full width -------------------------------------
+    t_c = time.perf_counter()
+    w = torch.randn((K, N), generator=gen(1101), device=dev) * K ** -0.5
+    x = torch.randn((4, K), generator=gen(1102), device=dev)
+    ex = AnalogExecutor(acfg, geom=CASE_A, emulator_params=trained)
+    ex.calibrate(calibration_probes(prng.key(9), 128, K, dev), w, LIFE_TAG)
+    ideal = ex.matmul(x, w, LIFE_TAG).float()
+    sweep = NI.ScenarioSweep(ex, w, LIFE_TAG, n_draws=SWEEP_DRAWS)
+    skey = prng.key(11)
+    curve = []
+    eb.emulator_block_unified_cuda.launches = 0
+    with RecompileSentinel(fns=(sweep,), strict=False,
+                           label="sweep") as sent:
+        for s in SWEEP_SIGMAS:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ys = sweep(x, NI.Scenario(name="sw", prog_sigma=s), skey)
+            torch.cuda.synchronize()
+            errs = [_rel(y, ideal) for y in ys]
+            curve.append(dict(sigma=s, mean_rel_err=float(np.mean(errs)),
+                              ms=(time.perf_counter() - t0) * 1e3))
+            if not all(map(np_isfinite, errs)):
+                errors.append(f"(c) non-finite sweep error at sigma {s}")
+    n_sweep = eb.emulator_block_unified_cuda.launches
+    for r in curve:
+        print(f"[lifetime] (c) sweep {LIFE_TAG} sigma {r['sigma']}: mean rel "
+              f"err over {SWEEP_DRAWS} draws {r['mean_rel_err']:.5f}, "
+              f"{r['ms']:.1f} ms [{card}]", flush=True)
+    mono = all(a["mean_rel_err"] <= b["mean_rel_err"]
+               for a, b in zip(curve, curve[1:]))
+    sc = NI.Scenario(name="sw", prog_sigma=0.1, read_sigma=0.02)
+    keys = prng.split(skey, SWEEP_DRAWS)
+    real_b1 = eb_ops.emulator_block_unified_cuda
+    rec = []
+
+    def recording_b1(aux, g_norm, u01, pos01, **kw):
+        y = real_b1(aux, g_norm, u01, pos01, **kw)
+        rec.append((aux, g_norm, u01, pos01, kw, y))
+        return y
+
+    eb_ops.emulator_block_unified_cuda = recording_b1
+    try:
+        stacked = sweep.run(x, sc, keys)
+    finally:
+        eb_ops.emulator_block_unified_cuda = real_b1
+    alone = torch.cat([sweep.run(x, sc, [k]) for k in keys])
+    bit_equal = torch.equal(stacked, alone)
+    aux, gn, u, pos, kw, y = rec[0]
+    err = _stacked_vs_plain(f"B1 sweep {LIFE_TAG} {SWEEP_DRAWS} draws "
+                            f"stacked NB={gn.shape[0]} NO={gn.shape[1]} "
+                            f"M={u.shape[0]}", aux, gn, u, pos, kw, y,
+                            SWEEP_DRAWS)
+    out["b1_err"] = max(out["b1_err"], err)
+    ms = cuda_ms(lambda: eb.emulator_block_unified_cuda(aux, gn, u, pos, **kw),
+                 iters=5)
+    nbytes, gemm, other = unified_work(u.shape[0], gn.shape[0], gn.shape[1],
+                                       gn.shape[2], gn.shape[4], 1, 128, None)
+    bms, by = bound_ms(nbytes, (gemm + other, FP32_FLOP_S))
+    out["b1_rows"].append(dict(
+        shape=f"sweep {LIFE_TAG} {SWEEP_DRAWS} draws M={u.shape[0]} "
+        f"NB={gn.shape[0]} NO={gn.shape[1]}", ms=ms, bound_ms=bms,
+        bound_by=by, max_abs_err=err))
+    del rec[:], stacked, alone
+    out["b1"]["sweep"] = n_sweep
+    out["rows"]["sweep"] = dict(curve=curve, builds=sweep.builds,
+                                monotone=mono, bit_equal=bit_equal, b1_ms=ms,
+                                b1_bound_ms=bms)
+    print(f"[lifetime] (c) sweep: builds {sweep.builds} (sentinel ok "
+          f"{sent.ok}), mean error non-decreasing in sigma {mono}, B1 "
+          f"launches {n_sweep} ({len(SWEEP_SIGMAS)} levels), stacked draws "
+          f"bit-equal to one draw at a time {bit_equal}; the stacked B1 call "
+          f"{ms:.3f} ms, bound {bms:.3f} ms ({by}); {time.perf_counter() - t_c:.1f}"
+          f" s [{card}]", flush=True)
+    if sweep.builds != 1 or not sent.ok:
+        errors.append(f"(c) the sweep built {sweep.builds} times")
+    if not mono:
+        errors.append(f"(c) the sweep's mean error decreased with sigma: "
+                      f"{[r['mean_rel_err'] for r in curve]}")
+    if not bit_equal:
+        errors.append("(c) the stacked sweep is not bit-equal to one draw "
+                      "at a time")
+    if n_sweep != len(SWEEP_SIGMAS):
+        errors.append(f"(c) B1 launched {n_sweep} times for "
+                      f"{len(SWEEP_SIGMAS)} sweep levels")
+    del ex, sweep, w, x, ideal
+    torch.cuda.empty_cache()
+
+    # -- (d) the fleet campaign ----------------------------------------------
+    fc = _fleet_campaign(dev, card, cond, errors)
+    out["b1"]["fleet"] = fc["b1"]
+    out["b1_err"] = max(out["b1_err"], fc["b1_err"])
+    out["b1_rows"] += fc["b1_rows"]
+    out["rows"]["fleet"] = fc["row"]
+
+    # -- (e) ServeSession.calibrate on a served model -------------------------
+    t_e = time.perf_counter()
+    ex = AnalogExecutor(acfg, geom=CASE_A, emulator_params=trained)
+    ex.deploy(scenario="stressed", key=prng.fold_in(prng.key(0), 0xDEF))
+    sess = ServeSession("gemma3-1b", reduced=False, reduced_layers=2, batch=4,
+                        prompt_len=32, gen=8, seed=0, executor=ex, device=dev)
+    sess.calibrate(n=16)                       # at deployment: cold
+    ex.deploy(age=2_592_000.0)
+    eb.emulator_block_unified_cuda.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sess.calibrate(n=16, warm_start=True)
+    torch.cuda.synchronize()
+    cal_s = time.perf_counter() - t0
+    n_cal = eb.emulator_block_unified_cuda.launches
+    states = sess.states()
+    r1 = sess.generate(states=states)
+    r2 = sess.generate(states=states)
+    n_serve = eb.emulator_block_unified_cuda.launches
+    n_sites = len(sess.sites())
+    same = bool(np.array_equal(r1["tokens"], r2["tokens"]))
+    print(f"[lifetime] (e) gemma3-1b d_model={sess.cfg.d_model} layers="
+          f"{sess.cfg.num_layers}, {n_sites} sites under stressed at 1 month: "
+          f"warm calibration {cal_s:.3f} s ({ex._last_calib_n} probes a site, "
+          f"{n_cal} B1 launches); prefill 4x32 {r1['prefill_s'] * 1e3:.1f} / "
+          f"{r2['prefill_s'] * 1e3:.1f} ms, decode 7 steps "
+          f"{r1['decode_s'] * 1e3:.1f} / {r2['decode_s'] * 1e3:.1f} ms; the "
+          f"second run's tokens equal {same} [{card}]", flush=True)
+    if sess.cfg.d_model != GEMMA["d_model"] or n_sites != 6:
+        errors.append("(e) did not serve gemma3-1b at full width, 6 sites")
+    if not same or not np_isfinite(r1["logits"]):
+        errors.append("(e) the calibrated serve is not reproducible")
+    if ex._last_calib_n != 8:
+        errors.append(f"(e) warm calibration used {ex._last_calib_n} probes")
+    out["b1"]["serve_calibrate"] = n_serve
+    out["rows"]["serve"] = dict(calibrate_s=cal_s, prefill_ms=(
+        r1["prefill_s"] * 1e3, r2["prefill_s"] * 1e3), decode_ms=(
+        r1["decode_s"] * 1e3, r2["decode_s"] * 1e3), tokens_equal=same)
+    del sess, ex, states
+    torch.cuda.empty_cache()
+    secs = time.perf_counter() - t_phase
+    out["seconds"] = secs
+    print(f"[lifetime] phase 11 took {secs:.1f} s; B1 launches {out['b1']}",
+          flush=True)
+    if errors:
+        fail("; ".join(errors))
+    return out
+
+
+def _fleet_campaign(dev, card, cond, errors):
+    """(d): bench_fleet's campaign on the conditioned net: the SLO floor
+    on a 512-device subsample, ``MaintenancePlanner.plan`` (the surrogate
+    fitted on 256 probed devices), ``simulate_policy`` for the never,
+    always and planned policies, one chunk-step build across it
+    (``RecompileSentinel``), telemetry on and its snapshot through the
+    fleet profile; then 1,000 devices at chunk 256 against chunk 64, one
+    timed full evaluation (B1 launches a chunk, devices/s), one chunk's
+    draws and B1 calls timed, B1 at the stacked shape against its plain
+    version and a device alone against its stacked blocks."""
+    import numpy as np
+    import torch
+    sys.path.insert(0, str(ROOT / "tools"))
+    import check_telemetry
+    from repro_torch import fleet as FL
+    from repro_torch.configs.base import AnalogConfig
+    from repro_torch.configs.rram_ps32 import CASE_A
+    from repro_torch.core import prng
+    from repro_torch.core.analog import AnalogExecutor
+    from repro_torch.kernels.emulator_block import emulator_block as eb
+    from repro_torch.kernels.emulator_block import ops as eb_ops
+    from repro_torch.nonideal import DEFAULT_TIMELINE, Scenario
+    from repro_torch.obs import OBS, RecompileSentinel, snapshot
+    t_d = time.perf_counter()
+    K, N, B = FLEET_SHAPE
+    acfg = AnalogConfig(enabled=True, backend="emulator", layers=("mlp",))
+    g = torch.Generator(device=dev)
+    g.manual_seed(0)
+    w = torch.randn((K, N), generator=g, device=dev) * 0.2
+    x = torch.randn((B, K), generator=g, device=dev) * 0.5
+    ages = [t for _, t in DEFAULT_TIMELINE]
+    base = Scenario(name="fleet-base", prog_sigma=0.05, read_sigma=0.01,
+                    p_stuck_off=0.02, drift_nu=0.04, drift_t=0.0)
+    ex = AnalogExecutor(acfg, geom=CASE_A, emulator_params=cond)
+    if not ex.emulator_conditioned:
+        errors.append("(d) the campaign's net is not conditioned")
+    fkey = prng.fold_in(prng.key(0), 2)
+    out = {"b1_err": 0.0}
+    OBS.reset()
+    OBS.enable()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    held = torch.cuda.memory_allocated(dev)    # earlier phases' tensors
+    eb.emulator_block_unified_cuda.launches = 0
+    try:
+        fleet = FL.Fleet(ex, w, "fleet", FL.FleetSpec(
+            n_devices=FLEET_N, base=base, chunk=FLEET_CHUNK), key=fkey)
+        t0 = time.perf_counter()
+        with RecompileSentinel(fns=(fleet,), max_traces=1, strict=False,
+                               label="fleet:chunk") as sent:
+            probe_ids = np.arange(0, FLEET_N, max(1, FLEET_N // 512),
+                                  dtype=np.int32)
+            floor = fleet.evaluate(x, ages[0], ids=probe_ids,
+                                   cal_age=ages[0])
+            slo = FLEET_SLO_OVER_FLOOR * float(np.median(floor))
+            planner = FL.MaintenancePlanner(fleet, ages,
+                                            costs=FL.ActionCosts(), slo=slo,
+                                            n_probe=256)
+            t1 = time.perf_counter()
+            plan = planner.plan(x)
+            plan_s = time.perf_counter() - t1
+            replays = {}
+            for name, acts in (
+                    ("never", FL.never_policy(FLEET_N, ages)),
+                    ("always", FL.always_recalibrate_policy(FLEET_N, ages)),
+                    ("plan", plan.actions)):
+                t1 = time.perf_counter()
+                replays[name] = FL.simulate_policy(fleet, x, ages, acts,
+                                                   planner.costs, slo,
+                                                   policy=name)
+                replays[name + "_s"] = time.perf_counter() - t1
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n_campaign = eb.emulator_block_unified_cuda.launches
+        snap = snapshot()
+    finally:
+        OBS.disable()
+        OBS.reset()
+    peak = torch.cuda.max_memory_allocated(dev)
+    snap_path = ROOT / "build" / "phase11_fleet_telemetry.json"
+    with open(snap_path, "w") as f:
+        json.dump(snap, f, indent=2, sort_keys=True)
+    with open(ROOT / "tools" / "telemetry_schema.json") as f:
+        schema = json.load(f)
+    terrs = check_telemetry.check(snap, schema, profile="fleet")
+    counts = {n: int((plan.actions == a).sum())
+              for a, n in enumerate(FL.ACTION_NAMES)}
+    dominates = [all(replays["plan"][i]["cost_adjusted_acc"]
+                     >= replays[b][i]["cost_adjusted_acc"]
+                     for b in ("never", "always")) for i in range(len(ages))]
+    for i, (lab, _) in enumerate(DEFAULT_TIMELINE):
+        cols = ", ".join(f"{p} {replays[p][i]['cost_adjusted_acc']:.5f} "
+                         f"({replays[p][i]['violations']} violations, mean "
+                         f"err {replays[p][i]['mean_err']:.5f})"
+                         for p in ("never", "always", "plan"))
+        print(f"[fleet] (d) {lab}: cost-adjusted accuracy {cols}", flush=True)
+    finite = all(np_isfinite(r[k]) for p in ("never", "always", "plan")
+                 for r in replays[p] for k in ("mean_err", "p95_err"))
+    finite = finite and np_isfinite(floor)
+    print(f"[fleet] (d) {FLEET_N} devices of ({K}, {N}), chunk {FLEET_CHUNK}, "
+          f"the conditioned net: SLO {slo:.5f} (2x the median fresh error at "
+          f"1h on {probe_ids.size} devices); plan actions {counts}, expected "
+          f"cost {plan.expected_cost:.1f}, remap horizon {plan.remap_horizon},"
+          f" surrogate pinball {planner.ranker.train_pinball:.6f}; the planner "
+          f"matches or beats both baselines at every checkpoint: "
+          f"{all(dominates)} {dominates}; campaign {wall:.1f} s (plan "
+          f"{plan_s:.1f} s, replays never {replays['never_s']:.1f} / always "
+          f"{replays['always_s']:.1f} / plan {replays['plan_s']:.1f} s), B1 "
+          f"launches {n_campaign}; chunk-step builds {fleet.builds} "
+          f"(sentinel ok {sent.ok}); peak memory {peak / 2**30:.2f} GiB, "
+          f"{(peak - held) / 2**30:.2f} GiB over what was held before; "
+          f"every error finite {finite}; telemetry snapshot, fleet profile: "
+          f"{'ok' if not terrs else terrs} [{card}]", flush=True)
+    if fleet.builds != 1 or not sent.ok:
+        errors.append(f"(d) the chunk step was built {fleet.builds} times")
+    if terrs:
+        errors.append(f"(d) the campaign's snapshot fails the fleet profile: "
+                      f"{terrs}")
+    if not finite:
+        errors.append("(d) a non-finite fleet error")
+
+    # 1,000 devices at chunk 256 against chunk 64
+    ids = np.arange(FLEET_CHECK_N, dtype=np.int32)
+    small = FL.Fleet(ex, w, "fleet", FL.FleetSpec(
+        n_devices=FLEET_N, base=base, chunk=FLEET_CHECK_CHUNK), key=fkey)
+    eb.emulator_block_unified_cuda.launches = 0
+    a = fleet.evaluate(x, ages[1], ids=ids, cal_age=ages[0])
+    b = small.evaluate(x, ages[1], ids=ids, cal_age=ages[0])
+    n_check = eb.emulator_block_unified_cuda.launches
+    chunk_equal = bool(np.array_equal(a, b))
+    print(f"[fleet] (d) {FLEET_CHECK_N} devices at chunk {FLEET_CHUNK} and "
+          f"chunk {FLEET_CHECK_CHUNK} bit-equal: {chunk_equal} (max |diff| "
+          f"{float(np.abs(a - b).max()):.3e})", flush=True)
+    if not chunk_equal or not np_isfinite(a):
+        errors.append("(d) devices differ between chunk sizes")
+
+    # one timed full evaluation: seconds, devices/s, B1 launches a chunk
+    n_chunks = -(-FLEET_N // FLEET_CHUNK)
+    eb.emulator_block_unified_cuda.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    full = fleet.evaluate(x, ages[-1])
+    torch.cuda.synchronize()
+    eval_s = time.perf_counter() - t0
+    n_full = eb.emulator_block_unified_cuda.launches
+    per_chunk = n_full / n_chunks
+    if not np_isfinite(full):
+        errors.append("(d) a non-finite error in the full evaluation")
+    if per_chunk != 2:
+        errors.append(f"(d) B1 launched {per_chunk} times a chunk, expected 2")
+
+    # one chunk's parts: its draws (host and card), its B1 calls, the whole
+    st = fleet._step((B, K))
+    cid = np.arange(FLEET_CHUNK, dtype=np.int32)
+    cal = np.zeros(FLEET_CHUNK, np.float32)
+    age_t = torch.full((FLEET_CHUNK,), ages[-1], device=dev)
+    cal_t = torch.zeros((FLEET_CHUNK,), device=dev)
+    draw_host = host_ms(lambda: fleet._draws(cid, cal), iters=5)
+    draw_ms = cuda_ms(lambda: fleet._draws(cid, cal), iters=5)
+    d = fleet._draws(cid, cal)
+    chunk_ms = cuda_ms(lambda: fleet._errors(st, x, d, age_t, cal_t), iters=5)
+    chunk_host = host_ms(lambda: fleet._errors(st, x, d, age_t, cal_t), iters=5)
+    real_b1 = eb_ops.emulator_block_unified_cuda
+    rec = []
+
+    def recording_b1(aux, g_norm, u01, pos01, **kw):
+        y = real_b1(aux, g_norm, u01, pos01, **kw)
+        rec.append((aux, g_norm, u01, pos01, kw, y))
+        return y
+
+    eb_ops.emulator_block_unified_cuda = recording_b1
+    try:
+        fleet._errors(st, x, d, age_t, cal_t)
+    finally:
+        eb_ops.emulator_block_unified_cuda = real_b1
+    b1_ms, rows = 0.0, []
+    for part, (aux, gn, u, pos, kw, y) in zip(("fit", "serve"), rec):
+        NB, NO = gn.shape[:2]
+        label = (f"B1 fleet chunk {part} M={u.shape[0]} NB={NB} NO={NO} "
+                 f"({FLEET_CHUNK} devices stacked)")
+        err = compare(label, y, eb.emulator_block_unified_plain(
+            aux, gn, u, pos, **kw))
+        out["b1_err"] = max(out["b1_err"], err)
+        # device 7 alone: its (NB, NO/256) slice of the stacked lattice
+        no = NO // FLEET_CHUNK
+        c = 7
+        sh = kw.get("shift")
+        sh_c = (None if sh is None else sh.reshape(NB, FLEET_CHUNK, no, -1)
+                [:, c].reshape(NB * no, -1).contiguous())
+        one = eb.emulator_block_unified_cuda(
+            aux, gn[:, c * no:(c + 1) * no].contiguous(), u, pos, shift=sh_c)
+        want = y.reshape(2, u.shape[0], NB, FLEET_CHUNK, no, -1)[:, :, :, c]
+        alone_equal = torch.equal(one.reshape(want.shape), want)
+        ms = cuda_ms(lambda: eb.emulator_block_unified_cuda(aux, gn, u, pos,
+                                                            **kw), iters=10)
+        b1_ms += ms
+        nbytes, gemm, other = unified_work(u.shape[0], NB, NO, gn.shape[2],
+                                           gn.shape[4], 1, 128, sh)
+        bms, by = bound_ms(nbytes, (gemm + other, FP32_FLOP_S))
+        print(f"[time] {label}: kernel {ms:.3f} ms, bound {bms:.4f} ms ({by}); "
+              f"device {c} launched alone bit-equal to its stacked blocks "
+              f"{alone_equal} [{card}]", flush=True)
+        if not alone_equal:
+            errors.append(f"(d) {label}: a device alone differs from its "
+                          "stacked blocks")
+        rows.append(dict(shape=f"fleet chunk {part} M={u.shape[0]} NB={NB} "
+                         f"NO={NO}", ms=ms, bound_ms=bms, bound_by=by,
+                         max_abs_err=err, device_alone_equal=alone_equal))
+    del rec[:], d
+    row = dict(devices=FLEET_N, chunk=FLEET_CHUNK, slo=slo,
+               actions=counts, dominates=dominates,
+               replays={p: replays[p] for p in ("never", "always", "plan")},
+               campaign_s=wall, plan_s=plan_s, eval_s=eval_s,
+               devices_per_s=FLEET_N / eval_s, b1_per_chunk=per_chunk,
+               chunk_ms=chunk_ms, chunk_host_ms=chunk_host,
+               draws_ms=draw_ms, draws_host_ms=draw_host, b1_chunk_ms=b1_ms,
+               peak_gib=peak / 2**30, peak_over_held_gib=(peak - held) / 2**30,
+               builds=fleet.builds,
+               chunk_bit_equal=chunk_equal, campaign_b1=n_campaign)
+    print(f"[fleet] (d) full evaluation of {FLEET_N} devices {eval_s:.2f} s "
+          f"({FLEET_N / eval_s:.0f} devices/s), B1 launches a chunk "
+          f"{per_chunk:g}; one chunk: card {chunk_ms:.3f} ms, host "
+          f"{chunk_host:.3f} ms, of which B1 {b1_ms:.3f} ms (fit + serve) "
+          f"and the draws card {draw_ms:.3f} / host {draw_host:.3f} ms; "
+          f"(d) took {time.perf_counter() - t_d:.1f} s [{card}]", flush=True)
+    out["row"] = row
+    out["b1_rows"] = rows
+    out["b1"] = n_campaign + n_check + n_full
+    del fleet, small, ex
+    torch.cuda.empty_cache()
     return out
 
 

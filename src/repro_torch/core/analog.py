@@ -45,6 +45,17 @@ per tag while the state stays the same (``_read_plan``), and a new state
 ``DeploymentState.ideal()`` reproduces the plain path bit for bit.  The
 mesh-sharded forward is not ported yet (ROADMAP A11).
 
+Many device states of one tag (a sweep's draws, a fleet's chunk of
+devices) run as one forward, ``raw_matmul_many``: the drive depends only
+on the rows and their scale, which every state shares, so the states'
+conductances stack along the output-group axis and B1 evaluates them all
+in one launch; each state's outputs are summed over block groups in a
+fixed order, so a state's result does not depend on its batch-mates.
+``pairwise_sum`` is the matching fixed-order reduction for per-state
+statistics.  The reference's ``calibrate`` draws its own probes; here
+``calibration_probes`` draws them from a ``core.prng`` key and
+``calibration_budget`` applies the reference's cold/warm probe count.
+
 Telemetry (``repro_torch.obs``, at the reference's names): the plan and
 state caches' hits and misses, the calibration fit, each matmul's call
 and host-side time, and the builds -- the port compiles nothing, so
@@ -100,6 +111,41 @@ def _same_weight(a: torch.Tensor, b: torch.Tensor) -> bool:
     return a is b or (a.data_ptr() == b.data_ptr() and a.shape == b.shape
                       and a.stride() == b.stride() and a.dtype == b.dtype
                       and a.device == b.device)
+
+
+def calibration_probes(key, n: int, k: int, device) -> torch.Tensor:
+    """The reference's calibration probes, ``normal * 0.5`` of shape (n,
+    k), drawn from a ``core.prng`` key on ``device``."""
+    return torch.randn((n, k), generator=prng.generator(prng.as_key(key),
+                                                        device),
+                       device=device) * 0.5
+
+
+def pairwise_sum(x: torch.Tensor) -> torch.Tensor:
+    """Sum over the last axis in a fixed pairwise order: zero-padded to a
+    power of two, then halves added until one column is left.  Each row's
+    result depends only on that row (``torch.sum`` picks its split by the
+    tensor's shape), so a device's statistics are the same whatever its
+    chunk."""
+    n = x.shape[-1]
+    p = 1 << max(0, (n - 1).bit_length())
+    if p != n:
+        x = torch.nn.functional.pad(x, (0, p - n))
+    while x.shape[-1] > 1:
+        h = x.shape[-1] // 2
+        x = x[..., :h] + x[..., h:]
+    return x[..., 0]
+
+
+def fc0_shift(sfeat: torch.Tensor, f0: torch.Tensor) -> torch.Tensor:
+    """A conditioned net's fc0 shift ``sfeat @ f0``: flat for a (F,)
+    encoding, one row a block (in lattice order) for a per-tile (..., F)
+    one.  The products are summed over the features by ``pairwise_sum``,
+    so each block's shift depends only on its own encoding (a cuBLAS
+    product picks its kernel, and with it the summation order, by the row
+    count: a device's shift would change with its chunk)."""
+    acc = pairwise_sum((sfeat[..., None] * f0).transpose(-1, -2))
+    return acc.reshape(-1, acc.shape[-1]) if acc.dim() > 2 else acc
 
 
 class _STMatmul(torch.autograd.Function):
@@ -451,6 +497,14 @@ class AnalogExecutor:
         return self.cp
 
     # ------------------------------------------------------------------ #
+    def calibration_budget(self, tag: str, n: int, warm_start: bool) -> int:
+        """The reference's probe count for a fit of ``tag``: ``n`` cold,
+        half of it (at least 8) when a warm start has a previous affine
+        to transfer."""
+        if warm_start and tag in self.calibration:
+            return max(8, n // 2)
+        return n
+
     @torch.no_grad()
     def calibrate(self, xc: torch.Tensor, w: torch.Tensor, tag: str,
                   warm_start: bool = False,
@@ -641,6 +695,23 @@ class AnalogExecutor:
         x = plan.build_x(vb01 * self.acfg.v_read)
         return self.block_outputs(x.float(), eparams, sfeat)
 
+    def _unified(self, plan: ConductancePlan, g_norm: torch.Tensor,
+                 x2d: torch.Tensor, x_scale: torch.Tensor,
+                 eparams: Optional[dict], sfeat: Optional[torch.Tensor]
+                 ) -> torch.Tensor:
+        """The fast path's B1 call: both rails of every (row, block) of
+        ``g_norm`` on the plan's drive of ``x2d``, with a conditioned net's
+        fc0 shift (``fc0_shift``) -> (2, M*blocks, O)."""
+        aux = self._blocklast_aux(eparams)
+        shift = None
+        if sfeat is not None and "f0_scen" in aux:
+            shift = fc0_shift(sfeat, aux["f0_scen"])
+        u = plan.tile_v(self._drive01(torch.abs(x2d) / x_scale), 1.0)
+        pos = plan.tile_v((x2d > 0).float(), 1.0)
+        return emulator_block_unified(aux, g_norm.contiguous(),
+                                      u.contiguous(), pos.contiguous(),
+                                      shift=shift)
+
     def raw_matmul(self, x2d: torch.Tensor, w: torch.Tensor, tag: str = "",
                    plan: Optional[ConductancePlan] = None,
                    read_key=None, read_sigma=None,
@@ -681,23 +752,63 @@ class AnalogExecutor:
         x2d = x2d.float()
         x_scale = torch.clamp_min(torch.max(torch.abs(x2d)), 1e-9)
         if self.acfg.backend == "emulator" and self.fast_path:
-            aux = self._blocklast_aux(eparams)
-            shift = None
-            if sfeat is not None and "f0_scen" in aux:
-                shift = sfeat @ aux["f0_scen"]
-                if shift.dim() == 3:
-                    shift = shift.reshape(-1, shift.shape[-1])
-            u = plan.tile_v(self._drive01(torch.abs(x2d) / x_scale), 1.0)
-            pos = plan.tile_v((x2d > 0).float(), 1.0)
-            y2 = emulator_block_unified(aux, plan.g_norm.contiguous(),
-                                        u.contiguous(), pos.contiguous(),
-                                        shift=shift)
+            y2 = self._unified(plan, plan.g_norm, x2d, x_scale, eparams,
+                               sfeat)
             return plan.assemble(y2[0]) - plan.assemble(y2[1]), x_scale
         rails = torch.cat([torch.clamp_min(x2d, 0.0),
                            torch.clamp_min(-x2d, 0.0)], dim=0)
         vb01 = plan.tile_v(self._drive01(rails / x_scale), 1.0)  # (2B,NB,D,H)
         y = plan.assemble(self._eval_blocks(plan, vb01.float(), eparams, sfeat))
         return y[:B] - y[B:], x_scale
+
+    def raw_matmul_many(self, x2d: torch.Tensor, w: torch.Tensor, tag: str,
+                        g_read: torch.Tensor,
+                        eparams: Optional[dict] = None,
+                        sfeat: Optional[torch.Tensor] = None
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``raw_matmul`` of the same rows under C device states at once:
+        ``g_read`` (C, NB, NO, D, H, W) holds each state's read
+        conductances (after its read draw) on the tag's plan layout, with
+        no output permutation.  The states stack along the output-group
+        axis into one (NB, C*NO) lattice -- one B1 launch on the fast
+        path -- and each state's block outputs are summed over block
+        groups in a fixed order.  ``sfeat`` is a conditioned net's
+        encoding: one (F,) for all states, or (C, NB, NO, F), one a tile
+        of each.  Returns the volts (C, B, N) and ``max|x|``."""
+        if self.acfg.backend == "digital":
+            raise ValueError("the digital backend has no analog forward")
+        plan = self._plan_for(w, tag)
+        C, NB, NO = g_read.shape[0], plan.NB, plan.NO
+        sp = plan.with_lattice(
+            g_read.transpose(0, 1).reshape((NB, C * NO) + g_read.shape[3:]),
+            self.acfg, NO=C * NO)
+        if sfeat is not None and sfeat.dim() > 1:
+            sfeat = sfeat.transpose(0, 1).reshape(NB, C * NO, sfeat.shape[-1])
+        B = x2d.shape[0]
+        x2d = x2d.float()
+        x_scale = torch.clamp_min(torch.max(torch.abs(x2d)), 1e-9)
+        if self.acfg.backend == "emulator" and self.fast_path:
+            y2 = self._unified(plan, sp.g_norm, x2d, x_scale, eparams, sfeat)
+            return (self._assemble_many(plan, y2[0], C)
+                    - self._assemble_many(plan, y2[1], C)), x_scale
+        rails = torch.cat([torch.clamp_min(x2d, 0.0),
+                           torch.clamp_min(-x2d, 0.0)], dim=0)
+        vb01 = plan.tile_v(self._drive01(rails / x_scale), 1.0)
+        y = self._assemble_many(
+            plan, self._eval_blocks(sp, vb01.float(), eparams, sfeat), C)
+        return y[:, :B] - y[:, B:], x_scale
+
+    @staticmethod
+    def _assemble_many(plan: ConductancePlan, outs: torch.Tensor,
+                       C: int) -> torch.Tensor:
+        """(M*NB*C*NO, no) block outputs of C stacked states -> (C, M, N),
+        block groups added one after another."""
+        M = outs.shape[0] // (plan.NB * C * plan.NO)
+        y = outs.reshape(M, plan.NB, C, plan.NO * plan.no)[..., :plan.N]
+        acc = y[:, 0]
+        for b in range(1, plan.NB):
+            acc = acc + y[:, b]
+        return acc.transpose(0, 1)
 
     def matmul(self, x: torch.Tensor, w: torch.Tensor, tag: str = "",
                state: Optional[DeploymentState] = None) -> torch.Tensor:

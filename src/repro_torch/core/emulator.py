@@ -104,6 +104,33 @@ def _adam_step(p, m, v, grads, t: int, lr: float):
     torch._foreach_sub_(p, torch._foreach_div(num, den))
 
 
+def adam_epoch(params: dict, state, t: int, data, perm: np.ndarray,
+               bs: int, lr: float):
+    """One epoch of Adam steps through the training forward
+    ``conv4xbar.apply`` on the rows ``perm`` of ``data`` = (X, periph or
+    None, Y) in batches of ``bs`` (a short last batch is dropped).
+    ``state`` = (trained tensors, first moments, second moments), updated
+    in place; returns the step count and the summed batch loss."""
+    (p, m, v), (X, Pf, Y) = state, data
+    steps = max(1, X.shape[0] // bs)
+    idx = torch.from_numpy(perm[:steps * bs]).to(X.device)
+    xb = X[idx].reshape((steps, bs) + X.shape[1:])
+    yb = Y[idx].reshape((steps, bs) + Y.shape[1:])
+    pb = (Pf[idx].reshape((steps, bs) + Pf.shape[1:])
+          if Pf is not None else None)
+    loss_sum = torch.zeros((), device=X.device)
+    for s in range(steps):
+        pred = conv4xbar.apply(params, xb[s],
+                               pb[s] if pb is not None else None)
+        loss = torch.mean(torch.square(pred - yb[s]))
+        grads = torch.autograd.grad(loss, p)
+        t += 1
+        with torch.no_grad():
+            _adam_step(p, m, v, list(grads), t, lr)
+            loss_sum += loss
+    return t, loss_sum
+
+
 def train_emulator(seed: int, geom: BlockGeometry, acfg: AnalogConfig,
                    cp: CircuitParams, tcfg: EmulatorTrainConfig,
                    fused: bool = True, log_every: int = 0, data=None,
@@ -171,21 +198,8 @@ def train_emulator(seed: int, geom: BlockGeometry, acfg: AnalogConfig,
     for epoch in range(tcfg.epochs):
         if epoch in tcfg.lr_halve_at:
             lr *= 0.5
-        perm = torch.from_numpy(rng.permutation(n)[:steps_per_epoch * bs]).to(dev)
-        xb = Xtr[perm].reshape((steps_per_epoch, bs) + Xtr.shape[1:])
-        yb = Ytr_n[perm].reshape((steps_per_epoch, bs) + Ytr_n.shape[1:])
-        pb = (Ptr[perm].reshape((steps_per_epoch, bs) + Ptr.shape[1:])
-              if Ptr is not None else None)
-        loss_sum = torch.zeros((), device=dev)
-        for s in range(steps_per_epoch):
-            pred = conv4xbar.apply(params, xb[s],
-                                   pb[s] if pb is not None else None)
-            loss = torch.mean(torch.square(pred - yb[s]))
-            grads = torch.autograd.grad(loss, p)
-            t += 1
-            with torch.no_grad():
-                _adam_step(p, m, v, list(grads), t, lr)
-                loss_sum += loss
+        t, loss_sum = adam_epoch(params, (p, m, v), t, (Xtr, Ptr, Ytr_n),
+                                 rng.permutation(n), bs, lr)
         tr_loss = float(loss_sum / steps_per_epoch) * y_scale
         if log_every and (epoch % log_every == 0 or epoch == tcfg.epochs - 1):
             with torch.no_grad():

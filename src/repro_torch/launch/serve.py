@@ -184,6 +184,21 @@ class ServeSession:
                             site=self.site, call_site=sk).inc()
         return sts
 
+    def calibrate(self, key=None, n: int = 16,
+                  warm_start: bool = False) -> None:
+        """Fit every call site's volts->logical affine against digital
+        under the executor's active deployment, sites in sorted order, site
+        ``i`` on probes drawn from ``fold_in(key, i)`` (default key:
+        ``seed + 1``; ``analog.calibration_probes``), ``n`` rows cold and
+        half of them warm (``AnalogExecutor.calibration_budget``)."""
+        from repro_torch.core import analog, prng
+        key = prng.key(self.seed + 1) if key is None else prng.as_key(key)
+        for i, (sk, w) in enumerate(sorted(self.sites().items())):
+            m = self.ex.calibration_budget(sk, n, warm_start)
+            xc = analog.calibration_probes(prng.fold_in(key, i), m,
+                                           w.shape[0], w.device)
+            self.ex.calibrate(xc, w, sk, warm_start=warm_start)
+
     def save_deployment(self, path: str) -> str:
         """Write the last-served (or current) per-site states and the
         deployment spec to npz (``serve --state-save``)."""

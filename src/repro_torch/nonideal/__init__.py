@@ -8,17 +8,23 @@ analytic and emulator backends.  Scenarios are scalar (one corner for the
 whole plan) or ``(NB, NO)``-tile-indexed (``tile_scenarios``);
 ``remap_plan`` adds stuck-fault-aware column remapping;
 ``scenario_features`` encodes a corner for the conditioned emulator that
-``train_conditioned_emulator`` trains over the whole corner manifold.
-The lifetime scheduler, its retrainers, ``finetune_emulator`` and the
-scenario sweep are not ported yet.
+``train_conditioned_emulator`` trains over the whole corner manifold;
+``lifetime`` schedules remapping, recalibration and retraining across a
+drift timeline (``finetune_emulator`` adapts a serving net), and
+``ScenarioSweep`` evaluates N device draws of a corner in one forward.
 """
-from repro_torch.nonideal.data import (ScenarioSpace,
+from repro_torch.nonideal.data import (ScenarioSpace, finetune_emulator,
                                        generate_dataset_conditioned,
                                        generate_dataset_nonideal,
                                        sample_scenarios,
                                        train_conditioned_emulator,
                                        train_noise_aware_emulator)
-from repro_torch.nonideal.lifetime import DEFAULT_TIMELINE, scenario_at_age
+from repro_torch.nonideal.lifetime import (DEFAULT_TIMELINE,
+                                           LifetimeScheduler,
+                                           make_conditioned_field_calibrator,
+                                           make_field_retrainer,
+                                           make_noise_aware_retrainer,
+                                           scenario_at_age)
 from repro_torch.nonideal.perturb import (apply_read_noise, drift_factor,
                                           drift_factor_at_age, fault_draw,
                                           perturb_conductance, perturb_draws,
@@ -36,13 +42,17 @@ from repro_torch.nonideal.scenario import (BUILTIN_SCENARIOS,
                                            scenario_features_tiled,
                                            scenario_from_json,
                                            scenario_to_json, tile_scenarios)
+from repro_torch.nonideal.sweep import ScenarioSweep
 
 __all__ = [
-    "BUILTIN_SCENARIOS", "DEFAULT_TIMELINE", "N_SCENARIO_FEATURES",
-    "SCENARIO_FEATURE_NAMES", "Scenario", "ScenarioSpace",
-    "apply_read_noise", "collapse_tiles", "drift_factor",
-    "drift_factor_at_age", "fault_draw", "generate_dataset_conditioned",
+    "BUILTIN_SCENARIOS", "DEFAULT_TIMELINE", "LifetimeScheduler",
+    "N_SCENARIO_FEATURES", "SCENARIO_FEATURE_NAMES", "Scenario",
+    "ScenarioSpace", "ScenarioSweep", "apply_read_noise", "collapse_tiles",
+    "drift_factor", "drift_factor_at_age", "fault_draw",
+    "finetune_emulator", "generate_dataset_conditioned",
     "generate_dataset_nonideal", "get_scenario", "list_scenarios",
+    "make_conditioned_field_calibrator", "make_field_retrainer",
+    "make_noise_aware_retrainer",
     "perturb_conductance", "perturb_draws", "perturb_plan",
     "quantize_levels", "read_noise_draw", "realized_fault_masks",
     "register_scenario", "remap_plan", "sample_fault_masks",

@@ -10,8 +10,11 @@ read draw per sample) and label with the scenario-adjusted circuit.
     and the scenario's encoding (``scenario_features``) is appended to
     the peripheral features, so one net serves any corner or age.
 
-All draws come from the caller's ``torch.Generator``, on its device; the
-warm-start ``finetune_emulator`` is not ported yet.
+  * ``finetune_emulator`` -- warm-start adaptation of a serving net to
+    an aged corner (the lifetime scheduler's retrainers).
+
+All draws come from the caller's ``torch.Generator``, on its device, or
+from a ``core.prng`` key.
 """
 from __future__ import annotations
 
@@ -19,13 +22,16 @@ import math
 from dataclasses import dataclass
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch import DeviceLike, resolve_device
 from repro_torch.configs.base import AnalogConfig
 from repro_torch.configs.rram_ps32 import BlockGeometry, EmulatorTrainConfig
+from repro_torch.core import prng
 from repro_torch.core.circuit import CircuitParams, block_response
-from repro_torch.core.emulator import (EmulatorResult, normalize_features,
+from repro_torch.core.emulator import (EmulatorResult, adam_epoch,
+                                       normalize_features,
                                        sample_block_inputs, train_emulator)
 from repro_torch.nonideal.perturb import (apply_read_noise,
                                           perturb_conductance,
@@ -230,3 +236,46 @@ def train_noise_aware_emulator(seed: int, geom: BlockGeometry,
                                      cp, scenario)
     return train_emulator(seed, geom, acfg, cp, tcfg, data=data,
                           log_every=log_every)
+
+
+def finetune_emulator(key, params: dict, geom: BlockGeometry,
+                      acfg: AnalogConfig, cp: CircuitParams,
+                      scenario: Scenario, n: int = 4096, epochs: int = 30,
+                      batch_size: int = 512, lr: float = 2e-4, data=None,
+                      perm_seed: Optional[int] = None) -> dict:
+    """Warm-start adaptation of a trained emulator to a degraded corner:
+    a few low-lr Adam epochs from the CURRENT params, so the net moves a
+    short distance toward the aged response surface and nowhere else
+    (retraining from scratch pays full model variance every checkpoint).
+
+    ``data`` is an ``(X, Pf, Y)`` triple of normalized block features,
+    peripheral features and raw-volt circuit labels (the field retrainers
+    pass the fleet's own serving-distribution blocks); when None, ``n``
+    noise-aware samples of ``scenario`` are labelled from
+    ``fold_in(key, 0xF17E)`` on the params' device.  Steps run through
+    ``emulator.adam_epoch`` (the training forward, the reference's Adam)
+    at a constant ``lr``.  ``perm_seed`` seeds numpy's per-epoch
+    permutations (default: derived from ``fold_in(key, 0x5EED)``; the
+    reference derives its integer from its own key, which a test can hand
+    over).  Returns fresh params; ``params`` is not mutated."""
+    dev = next(iter(params.values())).device
+    if data is None:
+        data = generate_dataset_nonideal(
+            prng.generator(prng.fold_in(prng.as_key(key), 0xF17E), dev), n,
+            geom, acfg, cp, scenario)
+    n = data[0].shape[0]
+    q = {k: v.detach().to(dev, torch.float32).clone()
+         for k, v in params.items()}
+    # _meta gets no gradient, so the reference's update leaves it as it is
+    p = [q[k].requires_grad_(True) for k in q if k != "_meta"]
+    state = (p, [torch.zeros_like(a) for a in p],
+             [torch.zeros_like(a) for a in p])
+    if perm_seed is None:
+        perm_seed = prng.seed_of(prng.fold_in(prng.as_key(key), 0x5EED)) \
+            % (2 ** 31 - 1)
+    rng = np.random.default_rng(int(perm_seed))
+    t = 0
+    for _ in range(epochs):
+        t, _ = adam_epoch(q, state, t, data, rng.permutation(n),
+                          min(batch_size, n), lr)
+    return {k: a.detach() for k, a in q.items()}

@@ -113,14 +113,28 @@ def drift_factor(scenario: Scenario) -> torch.Tensor:
 def drift_factor_at_age(scenario: Scenario, age: Optional[float]
                         ) -> torch.Tensor:
     """``drift_factor`` with the scenario's ``drift_t`` replaced by
-    ``age`` seconds (None: the scenario's own)."""
-    f32 = lambda v: (v.detach().float().cpu() if isinstance(v, torch.Tensor)
-                     else torch.tensor(v, dtype=torch.float32))
-    t = f32(scenario.drift_t if age is None else age)
-    nu = f32(scenario.drift_nu)
+    ``age`` seconds (None: the scenario's own), on the device of the
+    tensor leaves (the CPU for a scalar corner): a fleet's per-device
+    leaves on the card age there, with no host round trip."""
+    vals = (scenario.drift_t if age is None else age, scenario.drift_nu,
+            scenario.drift_t0)
+    dev = next((v.device for v in vals if isinstance(v, torch.Tensor)),
+               torch.device("cpu"))
+    return drift_multiplier(*(v.detach().to(dev, torch.float32)
+                              if isinstance(v, torch.Tensor)
+                              else torch.tensor(v, dtype=torch.float32,
+                                                device=dev)
+                              for v in vals))
+
+
+def drift_multiplier(t: torch.Tensor, nu: torch.Tensor,
+                     t0: torch.Tensor) -> torch.Tensor:
+    """``(t / t0)^-nu`` on float32 tensors of one device, exactly 1.0
+    where drift is inactive (nu == 0 or t <= 0)."""
     active = (nu != 0.0) & (t > 0.0)
-    tt = torch.clamp_min(t, 1e-30) / f32(scenario.drift_t0)
-    return torch.where(active, torch.pow(tt, -nu), torch.ones(()))
+    tt = torch.clamp_min(t, 1e-30) / t0
+    return torch.where(active, torch.pow(tt, -nu),
+                       torch.ones((), device=t.device))
 
 
 def quantize_levels(g: torch.Tensor, acfg: AnalogConfig, n_levels
@@ -138,14 +152,17 @@ def quantize_levels(g: torch.Tensor, acfg: AnalogConfig, n_levels
 
 def perturb_conductance(g: torch.Tensor, acfg: AnalogConfig,
                         scenario: Scenario, eps: torch.Tensor,
-                        u: torch.Tensor) -> torch.Tensor:
+                        u: torch.Tensor,
+                        drift: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Device-state perturbation (programming + retention + faults) of raw
     conductances, given the device's draws (``perturb_draws``).  Read
-    noise is separate (per read cycle): ``apply_read_noise``."""
+    noise is separate (per read cycle): ``apply_read_noise``.  ``drift``
+    is the retention multiplier when the caller has it (default:
+    ``drift_factor(scenario)``)."""
     live = g > 0.0
     gp = quantize_levels(g, acfg, scenario.n_levels)
     gp = gp * torch.exp(_lv(scenario.prog_sigma, g) * eps)
-    gp = gp * _lv(drift_factor(scenario), g)
+    gp = gp * _lv(drift_factor(scenario) if drift is None else drift, g)
     on, off = sample_fault_masks(u, _leaf_for(scenario.p_stuck_on, g),
                                  _leaf_for(scenario.p_stuck_off, g))
     gmax, gmin = _c(acfg.g_max, gp), _c(acfg.g_min, gp)
@@ -231,7 +248,8 @@ def remap_plan(plan: ConductancePlan, acfg: AnalogConfig, scenario: Scenario,
     g = plan.g_feat.double().cpu().numpy()
     hz = None
     if horizon is not None:
-        hz = [drift_factor_at_age(scenario, t).numpy() for t in horizon]
+        hz = [drift_factor_at_age(scenario, t).cpu().numpy()
+              for t in horizon]
     cands = _perm_candidates(g, off.cpu().numpy(), plan, acfg, top_q, hz,
                              device=dev)
     gperm = cands[0]

@@ -92,7 +92,10 @@ print('MISSING', [m for m in NEW if m not in sys.modules])
     new = ["repro_torch.core." + m for m in ("circuit", "analytic", "theory",
                                               "emulator")]
     new += ["repro_torch.nonideal." + m for m in ("scenario", "perturb",
-                                                  "lifetime", "data")]
+                                                  "lifetime", "data",
+                                                  "sweep")]
+    new += ["repro_torch.fleet" + m for m in ("", ".population", ".forecast",
+                                              ".maintenance")]
     new += ["repro_torch.nonideal", "repro_torch.core.prng",
             "repro_torch.core.deployment", "repro_torch.launch.quickstart",
             "repro_torch.kernels.emulator_block.ops",
