@@ -157,7 +157,35 @@ JAX or of the JAX package.  Phases (any failure exits non-zero):
      cold at deployment, warm at one month (timed), then served twice on
      the same states (batch 4, prompt 32, 8 tokens): tokens equal, prefill
      / decode ms; a JSON ``lifetime`` line
- 12. a JSON ``kernels`` line, then the card line, then the result line.
+ 12. training (``runtime.steps``, ``optim``, ``checkpoint``,
+     ``runtime.trainer``), random weights at full widths, lr 1e-3 after a
+     2-step warmup: (a) gemma3-1b at full depth (26 layers), digital,
+     bf16, remat "full", B = 4, S = 256, 10 steps: the loss finite and its
+     last 3 steps' mean below its first 3; step ms, tokens/s, the
+     model-FLOPs share (6 N tokens / step / 989 TFLOP/s), one more step
+     split into gradient and AdamW, peak memory; (b) gemma3-1b cut to one
+     stacked period (6 layers, all under remat), MLPs on the phase-3 net,
+     fp32, B = 4, S = 32, 3 steps: B1 launched 18 sites x (forward +
+     recompute) a step, its first training call held against the plain
+     version (rtol 1e-4 / atol 1e-5), the straight-through products
+     ``ct @ w.T`` / ``x.T @ ct`` bit for bit, each step's ``mlp.up`` plan
+     the one of the weights the step started from (the optimizer updates
+     them in place) and its loss that of a fresh executor; (c)
+     recurrentgemma-2b cut to (R, R, L), fp32, B = 2, S = 128, 3 steps:
+     B6 launched 2 layers x (forward + recompute) and once a layer in
+     backward a step; one layer's backward launch bit-equal to the plain
+     version on the reversed inputs, its da / db against autograd of the
+     plain loop (rtol 1e-4 / atol 1e-5), the backward through the engine
+     and its Function's body, its flips and the launch alone timed in
+     turns beside the bytes bound; (d) the
+     ``Trainer`` on gemma3-1b at depth 2, fp32, a checkpoint every 2
+     steps, a ``SimulatedFailure`` at step 3: one restart, steps 2 run
+     twice, the end at step 6; the 4.3 GB state's device-to-host, write
+     and restore seconds; ``grad_accum=2`` against 1 on a mask of equal
+     counts (grads within rtol 1e-4 plus 1e-5 of each leaf's max; the
+     updates they give printed against rtol 1e-4 plus 1e-4 lr); a JSON
+     ``training`` line
+ 13. a JSON ``kernels`` line, then the card line, then the result line.
      The B2, B3 and B6 rows' ``ms`` is the kernel alone (B2, B3 on weights
      packed once); their ``call_ms`` is the whole call a user makes, which
      also packs the weights on the host (B2, B3) or folds h0 (B6).  Every
@@ -168,7 +196,12 @@ JAX or of the JAX package.  Phases (any failure exits non-zero):
      also counted in ``launches``; ``engine_path``: B1's tick calls, B6's
      first prefill call), and phase 11's (``lifetime_launches`` per part,
      also counted in ``launches``; ``lifetime_path``: the sweep's stacked
-     call and a fleet chunk's two calls).
+     call and a fleet chunk's two calls), and phase 12's
+     (``training_launches``: B1's in the train steps, also counted in
+     ``launches``, and in the fresh executors' check forwards, not counted
+     there; B6's in its Function's forward and backward, both counted;
+     ``training_path``: B1's first training call;
+     ``training_backward``: B6's backward call).
 """
 from __future__ import annotations
 
@@ -177,6 +210,7 @@ import json
 import subprocess
 import sys
 import time
+import types
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -994,7 +1028,11 @@ def main() -> None:
     life = lifetime_phase(dev, card, npz, ni["cond_npz"])
     torch.cuda.empty_cache()
 
-    # ---- phase 12: the kernels line --------------------------------------
+    # ---- phase 12: training ------------------------------------------------
+    train = training_phase(dev, card, npz)
+    torch.cuda.empty_cache()
+
+    # ---- phase 13: the kernels line --------------------------------------
     ebk = "emulator_block/emulator_block.py:"
     b1_head = next(r for r in b1_shapes if r["shape"].startswith("mlp.up")
                    and r["shape"].endswith(" M=4"))
@@ -1004,13 +1042,15 @@ def main() -> None:
     kernels = [
         entry("emulator_block_unified", src + "emulator_block_unified.cu",
               ebk + "295",
-              b1_launches + serv["b1"] + sum(life["b1"].values()),
+              b1_launches + serv["b1"] + sum(life["b1"].values())
+              + train["b1"]["training"],
               max(max_abs["B1"], ni["b1_err"], rec["b1_err"], serv["b1_err"],
-                  life["b1_err"]),
+                  life["b1_err"], train["b1_err"]),
               b1_head, b1_shapes, nonideal_launches=ni["b1"],
               model_launches=rec["b1"], model_path=rec["b1_rows"],
               engine_launches=serv["b1"], engine_path=serv["b1_rows"],
-              lifetime_launches=life["b1"], lifetime_path=life["b1_rows"]),
+              lifetime_launches=life["b1"], lifetime_path=life["b1_rows"],
+              training_launches=train["b1"], training_path=train["b1_rows"]),
         entry("emulator_block_unified (bf16 mode)",
               src + "emulator_block_unified.cu", ebk + "295", b1_bf16_launches,
               max_abs["B1 bf16"], b1_bf16_head, b1_bf16_shapes),
@@ -1026,14 +1066,18 @@ def main() -> None:
               slow_vs_fast_volts_err=ni["b3_slow_err"]),
         b4, b5, b6,
     ]
-    b6["max_abs_err"] = max(b6["max_abs_err"], rec["b6_err"], serv["b6_err"])
+    b6["max_abs_err"] = max(b6["max_abs_err"], rec["b6_err"], serv["b6_err"],
+                            train["b6_err"])
     b6["model_launches"] = rec["b6"]
     b6["model_path"] = rec["rows"]
-    b6["launches"] += serv["b6"]
+    b6["launches"] += serv["b6"] + sum(train["b6"].values())
     b6["engine_launches"] = serv["b6"]
     b6["engine_path"] = serv["rows"][1:]
+    b6["training_launches"] = train["b6"]
+    b6["training_backward"] = train["b6_rows"]
     print(json.dumps({"serving": serv["rows"][0]}), flush=True)
     print(json.dumps({"lifetime": life["rows"]}), flush=True)
+    print(json.dumps({"training": train["row"]}), flush=True)
     print(f"[done] {time.perf_counter() - t_start:.1f} s", flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
@@ -2887,6 +2931,555 @@ def _fleet_campaign(dev, card, cond, errors):
     out["b1"] = n_campaign + n_check + n_full
     del fleet, small, ex
     torch.cuda.empty_cache()
+    return out
+
+
+# phase 12's training runs, random weights at full published widths:
+# (a) gemma3-1b at full depth (26 layers), digital, bf16 compute, remat
+# "full", 10 steps; (b) gemma3-1b cut to one stacked period (6 layers, every
+# layer under remat, so B1 runs in the forward and again in its recompute),
+# MLPs on the phase-3 net, fp32, 3 steps; (c) recurrentgemma-2b cut to one
+# (R, R, L) period, digital, fp32, 3 steps; (d) the trainer on gemma3-1b at
+# depth 2, digital, fp32, a checkpoint every 2 steps, a failure injected at
+# step 3, 6 steps.  lr 1e-3 with a 2-step warmup (tests/test_substrates.py's
+# TrainConfig: the default warmup of 100 would keep 10 steps near lr 0).
+TRAIN_FULL = dict(arch="gemma3-1b", B=4, S=256, steps=10)
+TRAIN_EMU = dict(arch="gemma3-1b", layers=6, B=4, S=32, steps=3)
+TRAIN_REC = dict(arch="recurrentgemma-2b", layers=3, B=2, S=128, steps=3)
+TRAIN_CKPT = dict(arch="gemma3-1b", layers=2, B=4, S=32, steps=6, fail_at=3)
+TRAIN_LR, TRAIN_WARMUP = 1e-3, 2
+# grad_accum=2 against 1 (fp32, a mask of equal counts): grads within
+# rtol 1e-4 plus 1e-5 of each leaf's largest |grad|; the updates they give
+# are printed against rtol 1e-4 plus 1e-4 of lr (1.0 and more can occur
+# where the Adam and decay terms cancel: 0.87 on the CPU's reduced model)
+ACCUM_RTOL, ACCUM_ATOL_SHARE = 1e-4, 1e-5
+
+
+def _to_dev(batch, dev):
+    import torch
+    out = {}
+    for k, v in batch.items():
+        t = torch.from_numpy(v)
+        out[k] = (t.long() if k in ("tokens", "targets") else t).to(dev)
+    return out
+
+
+def _n_params(tree):
+    from repro_torch.models.common import tree_leaves
+    return sum(p.numel() for p in tree_leaves(tree))
+
+
+def _timed_steps(step, state, data, dev, n):
+    """``n`` steps from batch 0, each timed on the host clock around work
+    ending in a synchronize; returns (state, losses, seconds)."""
+    import torch
+    losses, secs = [], []
+    for t in range(n):
+        batch = _to_dev(data.batch(t), dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, met = step(state, batch)
+        loss = float(met["loss"])
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        losses.append(loss)
+    return state, losses, secs
+
+
+def training_phase(dev, card, npz):
+    """Phase 12: training on the card (``runtime.steps``, ``optim``,
+    ``checkpoint``, ``runtime.trainer``), random weights at full widths
+    (``TRAIN_*``).  The launch counts are set to 0 just before each run
+    and read just after.  (a) full-depth gemma3-1b's loss falls; step ms,
+    tokens/s, peak memory, the model-FLOPs share, the step split into
+    gradient and update.  (b) B1 under autograd with a remat recompute:
+    its launches (sites x 2 a step), its first training call held against
+    the plain version, the straight-through products bit for bit, each
+    step's plans built from the weights the previous step updated in
+    place (against a fresh executor).  (c) B6's forward and backward
+    launches; the backward's launch bit-equal to the plain version on the
+    reversed inputs, one layer's input gradients against autograd of the
+    plain loop, the backward timed beside its bound.  (d) the trainer
+    recovers from an injected failure; checkpoint save and restore
+    seconds; grad_accum=2 against 1 (grads gated, updates printed).
+    Returns the launches, the held
+    calls' errors and rows, and a summary row."""
+    import dataclasses
+    import shutil
+    import statistics
+    import tempfile
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config, with_depth
+    from repro_torch.configs.base import (AnalogConfig, ParallelConfig,
+                                          TrainConfig)
+    from repro_torch.configs.rram_ps32 import CASE_A
+    from repro_torch.core.analog import AnalogExecutor, _STMatmul
+    from repro_torch.core.crossbar import build_conductance_plan
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.interop import load_emulator_npz
+    from repro_torch.kernels.emulator_block import emulator_block as eb
+    from repro_torch.kernels.linear_scan import ops as scan_ops
+    from repro_torch.models import model as M
+    from repro_torch.models.common import tree_items, tree_map, use_dense_hook
+    from repro_torch.optim import adamw_update
+    from repro_torch.runtime import steps as S
+    from repro_torch.runtime.trainer import SimulatedFailure, Trainer
+    lsm = importlib.import_module("repro_torch.kernels.linear_scan.linear_scan")
+    eb_ops = importlib.import_module("repro_torch.kernels.emulator_block.ops")
+    out = {"b1": {}, "b1_err": 0.0, "b1_rows": [], "b6": {}, "b6_err": 0.0,
+           "b6_rows": [], "row": {}}
+    row = out["row"]
+    t_phase = time.perf_counter()
+
+    def tcfg_for(steps, **kw):
+        return TrainConfig(lr=TRAIN_LR, warmup_steps=TRAIN_WARMUP,
+                           total_steps=steps, **kw)
+
+    # -- (a) full-depth gemma3-1b, digital, bf16 -----------------------------
+    a = TRAIN_FULL
+    cfg = get_config(a["arch"])
+    pcfg = ParallelConfig(compute_dtype="bfloat16", remat="full",
+                          attn_block_kv=min(1024, a["S"]),
+                          xent_chunk=min(2048, a["S"]))
+    tcfg = tcfg_for(a["steps"])
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    state = S.init_train_state(0, cfg, dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = _n_params(state["params"])
+    data = SyntheticLMData(cfg, a["S"], a["B"])
+    step = S.make_train_step(cfg, pcfg, tcfg)
+    state, losses, secs = _timed_steps(step, state, data, dev, a["steps"])
+    peak = torch.cuda.max_memory_allocated(dev)
+    first3, last3 = statistics.mean(losses[:3]), statistics.mean(losses[-3:])
+    if not all(np.isfinite(losses)) or not last3 < first3:
+        fail(f"full-depth {cfg.name}: the loss did not fall over "
+             f"{a['steps']} steps ({losses})")
+    step_s = statistics.median(secs[1:])
+    tokens = a["B"] * a["S"]
+    mfu = 6 * n_params * tokens / step_s / BF16_FLOP_S
+    # one more step, split into the gradient and the update
+    grad_fn = S.make_grad_fn(cfg, pcfg, tcfg)
+    batch = _to_dev(data.batch(a["steps"]), dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, _, grads = grad_fn(state["params"], batch)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    adamw_update(state["params"], grads, state["opt"], state["step"], tcfg)
+    torch.cuda.synchronize()
+    grad_s, upd_s = t1 - t0, time.perf_counter() - t1
+    # and one under the profiler: the card's busy time and its top kernels
+    batch = _to_dev(data.batch(a["steps"] + 1), dev)
+    _, wall_ms, busy_ms, top = profiled(lambda: step(state, batch))
+    print(f"[train] (a) {cfg.name}: {cfg.num_layers} layers, d_model "
+          f"{cfg.d_model}, vocab {cfg.vocab_size}, {n_params / 1e9:.3f} B "
+          f"params; B={a['B']} S={a['S']} bf16, remat full; loss "
+          f"{' '.join(f'{l:.4f}' for l in losses)} (first 3 {first3:.4f}, "
+          f"last 3 {last3:.4f}); step {step_s * 1e3:.1f} ms (median of steps "
+          f"2-{a['steps']}; step 1 {secs[0] * 1e3:.1f} ms), "
+          f"{tokens / step_s:.0f} tokens/s, model-FLOPs share "
+          f"{100 * mfu:.2f}% of 989 TFLOP/s; a step split: gradient "
+          f"{grad_s * 1e3:.1f} ms, AdamW {upd_s * 1e3:.1f} ms; under the "
+          f"profiler the card was busy {busy_ms:.1f} of {wall_ms:.1f} ms; "
+          f"peak memory {peak / 2**30:.2f} GiB; init {init_s:.1f} s "
+          f"[{card}]", flush=True)
+    for name, t, n in top:
+        print(f"[train] (a)   {t:9.3f} ms {n:5d}x  {name[:90]}", flush=True)
+    row["full"] = dict(arch=cfg.name, layers=cfg.num_layers, params=n_params,
+                       batch=a["B"], seq=a["S"], dtype="bfloat16",
+                       remat="full", losses=losses, step_ms=step_s * 1e3,
+                       first_step_ms=secs[0] * 1e3,
+                       tokens_per_s=tokens / step_s, mfu=mfu,
+                       grad_ms=grad_s * 1e3, adamw_ms=upd_s * 1e3,
+                       profiled_ms=wall_ms, device_busy_ms=busy_ms,
+                       top_kernels=top, peak_gib=peak / 2**30)
+    del state, grads, batch, step, grad_fn
+    torch.cuda.empty_cache()
+
+    # -- (b) B1 under autograd with a remat recompute ------------------------
+    b = TRAIN_EMU
+    cfg = with_depth(get_config(b["arch"]), b["layers"])
+    if cfg.num_periods != 1 or cfg.tail_kinds:
+        fail(f"(b) {cfg.name} is not one stacked period")
+    acfg = AnalogConfig(enabled=True, backend="emulator", layers=("mlp",))
+    trained = load_emulator_npz(str(npz), dev)
+    ex = AnalogExecutor(acfg, geom=CASE_A, emulator_params=trained)
+    pcfg = ParallelConfig(compute_dtype="float32", remat="full",
+                          attn_block_kv=b["S"], xent_chunk=b["S"])
+    tcfg = tcfg_for(b["steps"])
+    state = S.init_train_state(0, cfg, dev)
+    data = SyntheticLMData(cfg, b["S"], b["B"])
+    step = S.make_train_step(cfg, pcfg, tcfg)
+    n_sites = 3 * b["layers"]
+    real_b1 = eb_ops.emulator_block_unified_cuda
+    b1_calls = []
+    in_step = [False]
+
+    def recording_b1(aux, g_norm, u01, pos01, **kw):
+        y = real_b1(aux, g_norm, u01, pos01, **kw)
+        if in_step[0] and not b1_calls:
+            b1_calls.append((aux, g_norm, u01, pos01, kw, y))
+        return y
+
+    def fresh_loss(params, batch):
+        """The loss of a forward through a fresh executor (no grad: no
+        remat, one B1 launch a site)."""
+        fresh_ex = AnalogExecutor(acfg, geom=CASE_A, emulator_params=trained)
+        with torch.no_grad(), use_dense_hook(fresh_ex.hook):
+            return float(M.lm_loss(params, batch, cfg=cfg, pcfg=pcfg,
+                                   compute_dtype=torch.float32,
+                                   z_coef=tcfg.z_loss)[0])
+
+    w_key = "['decoder']['scan']['p5']['ff']['w_up']"
+    losses, plan_builds, fresh_err = [], [], []
+    # B1's launches are read around each train step (the training count)
+    # and around each fresh executor's forward (a check, kept apart)
+    train_b1 = fresh_b1 = 0
+    eb.emulator_block_unified_cuda.launches = 0
+    eb_ops.emulator_block_unified_cuda = recording_b1
+    try:
+        with use_dense_hook(ex.hook):
+            for t in range(b["steps"]):
+                batch = _to_dev(data.batch(t), dev)
+                w_before = dict(tree_items(state["params"]))[w_key][0].clone()
+                n0 = eb.emulator_block_unified_cuda.launches
+                fresh = fresh_loss(state["params"], batch)
+                n1 = eb.emulator_block_unified_cuda.launches
+                in_step[0] = True
+                state, met = step(state, batch)
+                in_step[0] = False
+                n2 = eb.emulator_block_unified_cuda.launches
+                fresh_b1 += n1 - n0
+                train_b1 += n2 - n1
+                losses.append(float(met["loss"]))
+                plan_builds.append(sum(ex.builds["plan"].values()))
+                fresh_err.append(abs(losses[-1] - fresh))
+                # the last mlp.up call of the step (layer 5, in the
+                # recompute) served a plan of the weights before this
+                # step's update
+                want_g = build_conductance_plan(w_before, acfg,
+                                                CASE_A).g_norm
+                if not torch.equal(ex._plans["mlp.up"][2].g_norm, want_g):
+                    fail(f"(b) step {t}: mlp.up's plan is not the one of "
+                         "the weights the step started from")
+                if fresh_err[-1] > 1e-6 * abs(fresh):
+                    fail(f"(b) step {t}: loss {losses[-1]} against a fresh "
+                         f"executor's {fresh}")
+    finally:
+        eb_ops.emulator_block_unified_cuda = real_b1
+    b1 = eb.emulator_block_unified_cuda.launches
+    if b1 != train_b1 + fresh_b1:
+        fail(f"(b) B1 launched {b1} times, {b1 - train_b1 - fresh_b1} of "
+             "them outside the train steps and the fresh forwards")
+    if train_b1 != b["steps"] * 2 * n_sites:
+        fail(f"(b) B1 launched {train_b1} times in the train steps, "
+             f"expected {b['steps'] * 2 * n_sites} ({b['steps']} steps x "
+             f"{n_sites} sites x (forward + remat recompute))")
+    if fresh_b1 != b["steps"] * n_sites:
+        fail(f"(b) B1 launched {fresh_b1} times in the fresh executors' "
+             f"forwards, expected {b['steps'] * n_sites} (one a site a step)")
+    if any(b2 <= b1_ for b1_, b2 in zip(plan_builds, plan_builds[1:])):
+        fail(f"(b) plan builds did not grow every step: {plan_builds}")
+    if not all(np.isfinite(losses)):
+        fail(f"(b) non-finite loss {losses}")
+    aux, gn, u, pos, kw, y = b1_calls[0]
+    NB, NO, D, H, W = gn.shape
+    a0, a1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    a0.record()
+    want = eb.emulator_block_unified_plain(aux, gn, u, pos)
+    a1.record()
+    torch.cuda.synchronize()
+    pms = a0.elapsed_time(a1)
+    label = f"B1 training call (first, {cfg.name}) M={u.shape[0]} NB={NB} NO={NO}"
+    err = compare(label, y, want)
+    out["b1_err"] = err
+    ms = cuda_ms(lambda: eb.emulator_block_unified_cuda(aux, gn, u, pos),
+                 iters=3, warmup=1)
+    O = aux["fcs"][-1][0].shape[1]
+    flat = aux["fcs"][0][0].shape[0]
+    nbytes, gemm, other = unified_work(u.shape[0], NB, NO, D, W, O, flat, None)
+    bms, by = bound_ms(nbytes, (gemm + other, FP32_FLOP_S))
+    out["b1_rows"].append(dict(shape=f"training {cfg.name} M={u.shape[0]} "
+                               f"NB={NB} NO={NO}", ms=ms, plain_ms=pms,
+                               bound_ms=bms, bound_by=by, bytes=nbytes,
+                               flops=gemm + other, max_abs_err=err))
+    del want, b1_calls[:]
+    # the straight-through products, bit for bit
+    p = dict(tree_items(state["params"]))
+    w = p[w_key][0]
+    g = torch.Generator(device=dev)
+    g.manual_seed(12)
+    x2 = torch.randn((b["B"] * b["S"], w.shape[0]), generator=g,
+                     device=dev).requires_grad_()
+    wr = w.detach().clone().requires_grad_()
+    st = ex.state_for("mlp.up", wr)
+    y2 = _STMatmul.apply(ex, "mlp.up", x2, wr, st)
+    ct = torch.randn(y2.shape, generator=g, device=dev)
+    gx, gw = torch.autograd.grad(y2, (x2, wr), ct)
+    st_equal = (torch.equal(gx, ct @ wr.detach().T)
+                and torch.equal(gw, x2.detach().T @ ct))
+    if not st_equal:
+        fail("(b) the straight-through gradient is not ct @ w.T / x.T @ ct")
+    print(f"[train] (b) {cfg.name} on the phase-3 net ({n_sites} MLP sites, "
+          f"one stacked period under remat full), B={b['B']} S={b['S']} fp32: "
+          f"loss {' '.join(f'{l:.4f}' for l in losses)}; B1 launches "
+          f"{train_b1} in the train steps ({n_sites} sites x 2 a step, as "
+          f"expected) + {fresh_b1} by the fresh executors; plan "
+          f"builds after each step {plan_builds} (the 6 layers of a tag "
+          f"share its cache entry, so each call builds); each step's "
+          f"mlp.up plan is its starting weights', its loss within "
+          f"{max(fresh_err):.2e} of a fresh executor's; straight-through "
+          f"products bit-equal; {label}: {ms:.3f} ms, plain {pms:.3f} ms, "
+          f"bound {bms:.3f} ms ({by}) [{card}]", flush=True)
+    out["b1"] = {"training": train_b1, "fresh_forwards": fresh_b1}
+    row["emulator"] = dict(arch=cfg.name, layers=b["layers"], sites=n_sites,
+                           batch=b["B"], seq=b["S"], losses=losses,
+                           b1_training_launches=train_b1,
+                           b1_fresh_launches=fresh_b1,
+                           plan_builds=plan_builds,
+                           fresh_loss_err=max(fresh_err),
+                           straight_through_bit_equal=st_equal)
+    del state, ex, step, x2, wr, y2, gx, gw, p, w
+    torch.cuda.empty_cache()
+
+    # -- (c) recurrentgemma-2b: B6 forward and backward ----------------------
+    c = TRAIN_REC
+    cfg = with_depth(get_config(c["arch"]), c["layers"])
+    pcfg = ParallelConfig(compute_dtype="float32", remat="full",
+                          attn_block_kv=c["S"], xent_chunk=c["S"])
+    tcfg = tcfg_for(c["steps"])
+    n_rec = sum(k == "R" for k in cfg.layer_kinds)
+    state = S.init_train_state(0, cfg, dev)
+    data = SyntheticLMData(cfg, c["S"], c["B"])
+    step = S.make_train_step(cfg, pcfg, tcfg)
+    fn = scan_ops._LinearScan
+    real_fwd, real_bwd = fn.forward, fn.backward
+    real_ls = scan_ops.linear_scan
+    n6 = {"forward": 0, "backward": 0}
+    path = []
+
+    def counted(name, real):
+        """``real`` with B6's launches during it added to ``n6[name]``."""
+        def run(*args):
+            n0 = lsm.linear_scan_cuda.launches
+            try:
+                return real(*args)
+            finally:
+                n6[name] += lsm.linear_scan_cuda.launches - n0
+        return staticmethod(run)
+
+    def recording_ls(a_, b_, h0=None, **kw):
+        if not path:
+            path.append((a_.detach().clone(), b_.detach().clone(), h0))
+        return real_ls(a_, b_, h0, **kw)
+
+    lsm.linear_scan_cuda.launches = 0
+    fn.forward = counted("forward", real_fwd)
+    fn.backward = counted("backward", real_bwd)
+    scan_ops.linear_scan = recording_ls
+    try:
+        state, losses, secs = _timed_steps(step, state, data, dev, c["steps"])
+    finally:
+        fn.forward, fn.backward = (staticmethod(real_fwd),
+                                   staticmethod(real_bwd))
+        scan_ops.linear_scan = real_ls
+    b6 = lsm.linear_scan_cuda.launches
+    want = {"forward": c["steps"] * n_rec * 2, "backward": c["steps"] * n_rec}
+    if n6 != want or b6 != sum(n6.values()):
+        fail(f"(c) B6 launched {n6['forward']} times in _LinearScan's "
+             f"forward and {n6['backward']} in its backward ({b6} in all), "
+             f"expected {want['forward']} / {want['backward']}")
+    if not all(np.isfinite(losses)):
+        fail(f"(c) non-finite loss {losses}")
+    out["b6"] = dict(n6)
+    del state, step
+    torch.cuda.empty_cache()
+    # one layer's recurrence (the first, at step 0): its backward
+    a_, b_, h0 = path[0]
+    if h0 is not None:
+        fail("(c) the training recurrence got an h0")
+    Bp, Sp, Dp = a_.shape
+    g = torch.Generator(device=dev)
+    g.manual_seed(13)
+    G = torch.randn(a_.shape, generator=g, device=dev)
+    ar = a_.clone().requires_grad_()
+    br = b_.clone().requires_grad_()
+    calls = []
+    real_scan = scan_ops._scan
+
+    def recording_scan(*args):
+        o = real_scan(*args)
+        calls.append((args, o))
+        return o
+
+    scan_ops._scan = recording_scan
+    try:
+        h, _ = scan_ops.linear_scan(ar, br)
+        da, db = torch.autograd.grad(h, (ar, br), G)
+    finally:
+        scan_ops._scan = real_scan
+    (ra, rg, rb0), rout = calls[1]
+    ea, eg = scan_ops.reverse_inputs(a_, G)
+    p0, p1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    p0.record()
+    plain_rev = lsm.linear_scan_plain(ea, eg)
+    p1.record()
+    torch.cuda.synchronize()
+    plain_ms = p0.elapsed_time(p1)
+    bwd_equal = (rb0 is None and torch.equal(ra, ea) and torch.equal(rg, eg)
+                 and torch.equal(rout, plain_rev))
+    if not bwd_equal:
+        fail("(c) B6's backward launch is not bit-equal to the plain version "
+             "on the reversed inputs")
+    al = a_.clone().requires_grad_()
+    bl = b_.clone().requires_grad_()
+    hl = lsm.linear_scan_plain(al, bl)
+    want_da, want_db = torch.autograd.grad(hl, (al, bl), G)
+    err_a = compare(f"B6 backward da, one layer ({Bp}, {Sp}, {Dp}) vs "
+                    "autograd of the plain loop", da, want_da)
+    err_b = compare(f"B6 backward db, one layer ({Bp}, {Sp}, {Dp}) vs "
+                    "autograd of the plain loop", db, want_db)
+    out["b6_err"] = max(err_a, err_b)
+    h, _ = scan_ops.linear_scan(ar, br)
+    # the backward's own work (its Function's body) apart from the engine
+    saved = types.SimpleNamespace(saved_tensors=(a_, h.detach()),
+                                  has_b0=False,
+                                  needs_input_grad=(True, True, False))
+    bwd_ms, fn_ms, flip_ms, kern_ms, fwd_ms = paired_ms([
+        lambda: torch.autograd.grad(h, (ar, br), G, retain_graph=True),
+        lambda: scan_ops._LinearScan.backward(saved, G),
+        lambda: (scan_ops.reverse_inputs(a_, G), rout.flip(1)),
+        lambda: lsm.linear_scan_cuda(ea, eg),
+        lambda: lsm.linear_scan_cuda(a_, b_)], iters=10)
+    it = a_.element_size()
+    nbytes = 5 * Bp * Sp * Dp * it         # read a, h, G; write da, db
+    bms, by = bound_ms(nbytes, (3 * Bp * Sp * Dp, FP32_FLOP_S))
+    print(f"[train] (c) {cfg.name} ({''.join(cfg.layer_kinds)}), B={c['B']} "
+          f"S={c['S']} fp32, remat full: loss "
+          f"{' '.join(f'{l:.4f}' for l in losses)}; B6 launches "
+          f"{n6['forward']} in _LinearScan's forward ({n_rec} layers x "
+          f"(forward + recompute) x {c['steps']} steps) + {n6['backward']} in "
+          f"its backward; step "
+          f"{statistics.median(secs) * 1e3:.1f} ms; the backward's launch "
+          f"bit-equal to the plain version on the reversed inputs; backward "
+          f"({Bp}, {Sp}, {Dp}) through the engine {bwd_ms:.4f} ms, its "
+          f"Function's body {fn_ms:.4f} ms (its flips and the reversed a "
+          f"{flip_ms:.4f} ms, the launch alone {kern_ms:.4f} ms; the forward "
+          f"launch {fwd_ms:.4f} ms; the plain version on the reversed inputs "
+          f"{plain_ms:.1f} ms), bound {bms:.4f} ms ({by}: "
+          f"{nbytes / 1e6:.1f} MB) [{card}]", flush=True)
+    out["b6_rows"].append(dict(
+        shape=f"B6 backward {cfg.name} B={Bp} S={Sp} D={Dp}", ms=fn_ms,
+        engine_ms=bwd_ms, flips_ms=flip_ms, kernel_ms=kern_ms,
+        forward_kernel_ms=fwd_ms, plain_ms=plain_ms,
+        bound_ms=bms, bound_by=by, bytes=nbytes, max_abs_err=out["b6_err"],
+        bit_equal=bwd_equal))
+    row["recurrent"] = dict(arch=cfg.name, layers=c["layers"], batch=c["B"],
+                            seq=c["S"], losses=losses,
+                            step_ms=statistics.median(secs) * 1e3,
+                            b6=out["b6"])
+    del h, ar, br, da, db, al, bl, hl, want_da, want_db, calls, path
+    torch.cuda.empty_cache()
+
+    # -- (d) the trainer: checkpoints, an injected failure, grad_accum -------
+    d = TRAIN_CKPT
+    cfg = with_depth(get_config(d["arch"]), d["layers"])
+    pcfg = ParallelConfig(compute_dtype="float32", attn_block_kv=d["S"],
+                          xent_chunk=d["S"])
+    tcfg = tcfg_for(d["steps"], checkpoint_every=2, keep_checkpoints=1)
+    armed = [True]
+
+    def fault(step_):
+        if step_ == d["fail_at"] and armed[0]:
+            armed[0] = False
+            raise SimulatedFailure("injected")
+
+    (ROOT / "build").mkdir(exist_ok=True)
+    ckdir = tempfile.mkdtemp(prefix="phase12_ckpt_", dir=ROOT / "build")
+    try:
+        tr = Trainer(cfg=cfg, pcfg=pcfg, tcfg=tcfg, mesh=None,
+                     data=SyntheticLMData(cfg, d["S"], d["B"]),
+                     ckpt_dir=ckdir, fault_hook=fault, device=dev)
+        saves = []
+        real_save = tr.ckpt.save
+
+        def timed_save(state_, step_, extra=None):
+            real_save(state_, step_, extra)
+            saves.append(tr.ckpt.last_save_s)
+
+        tr.ckpt.save = timed_save
+        t0 = time.perf_counter()
+        summary = tr.run(d["steps"])
+        run_s = time.perf_counter() - t0
+        write_s, restore_s = tr.ckpt.last_write_s, tr.ckpt.last_restore_s
+        steps_run = [m["step"] for m in tr.metrics_log]
+        with open(Path(ckdir) / f"step_{d['steps']:08d}" / "MANIFEST.json") as f:
+            man = json.load(f)
+        state_bytes = sum(int(np.prod(s)) * 4 for s in man["shapes"].values())
+        if summary["restarts"] != 1 or summary["final_step"] != d["steps"]:
+            fail(f"(d) the trainer did not recover: {summary}")
+        # the failure comes while step fail_at - 1's save is being written:
+        # the recovery resumes from it
+        want_run = (list(range(d["fail_at"]))
+                    + list(range(d["fail_at"] - 1, d["steps"])))
+        if steps_run != want_run or tr.builds != 1 or not restore_s > 0:
+            fail(f"(d) steps run {steps_run} (expected {want_run}), builds "
+                 f"{tr.builds}, restore {restore_s} s")
+        # grad_accum=2 against 1 on the restored state, a mask of equal counts
+        state, _ = tr.ckpt.restore(S.abstract_train_state(cfg), device=dev)
+        batch = _to_dev(tr.data.batch(0), dev)
+        batch["mask"] = torch.ones_like(batch["mask"])
+        l1, _, g1 = S.make_grad_fn(cfg, pcfg, tcfg)(state["params"], batch)
+        l2, _, g2 = S.make_grad_fn(cfg, dataclasses.replace(pcfg, grad_accum=2),
+                                   tcfg)(state["params"], batch)
+        use = 0.0
+        for (k, x1), (_, x2_) in zip(tree_items(g1), tree_items(g2)):
+            tol = ACCUM_RTOL * x1.abs() + ACCUM_ATOL_SHARE * x1.abs().max()
+            use = max(use, float(((x2_ - x1).abs() / tol.clamp_min(1e-30)).max()))
+        lerr = abs(float(l2) - float(l1)) / abs(float(l1))
+        if use > 1.0 or lerr > 1e-5:
+            fail(f"(d) grad_accum=2 disagrees with 1: gate use {use:.2f}, "
+                 f"loss rel {lerr:.2e}")
+        # the update each gives (AdamW on copies of the restored state),
+        # printed: rtol 1e-4 of an element's update plus 1e-4 of lr (where
+        # the Adam and decay terms cancel, an update is ~0)
+        deltas = []
+        for g in (g1, g2):
+            p = tree_map(torch.clone, state["params"])
+            o = tree_map(torch.clone, state["opt"])
+            _, _, om = adamw_update(p, g, o, state["step"], tcfg)
+            deltas.append([v - p0 for (_, v), (_, p0) in
+                           zip(tree_items(p), tree_items(state["params"]))])
+            del p, o
+        lr_now = float(om["lr"])
+        upd_use = max(float(((d2 - d1).abs() / (ACCUM_RTOL * d1.abs()
+                                                + ACCUM_RTOL * lr_now)).max())
+                      for d1, d2 in zip(*deltas))
+        del state, g1, g2, batch, deltas
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+    print(f"[train] (d) Trainer on {cfg.name}, fp32, B={d['B']} S={d['S']}: "
+          f"{summary}; steps run {steps_run}; {len(saves)} checkpoints of "
+          f"{state_bytes / 1e9:.2f} GB: device-to-host "
+          f"{', '.join(f'{s:.2f}' for s in saves)} s, the last write "
+          f"{write_s:.2f} s, restore {restore_s:.2f} s; run {run_s:.1f} s; "
+          f"grad_accum=2 against 1: grads within {use:.2f} of the gate "
+          f"(rtol {ACCUM_RTOL} + {ACCUM_ATOL_SHARE} of each leaf's max), "
+          f"loss rel {lerr:.1e}, the updates {upd_use:.2f} of rtol "
+          f"{ACCUM_RTOL} + {ACCUM_RTOL} lr (printed) [{card}]", flush=True)
+    row["trainer"] = dict(arch=cfg.name, summary=summary, steps_run=steps_run,
+                          state_gb=state_bytes / 1e9, save_s=saves,
+                          write_s=write_s, restore_s=restore_s, run_s=run_s,
+                          accum_gate_use=use, accum_loss_rel=lerr,
+                          accum_update_use=upd_use)
+    torch.cuda.empty_cache()
+    secs = time.perf_counter() - t_phase
+    row["phase_s"] = secs
+    print(f"[train] phase 12 took {secs:.1f} s", flush=True)
     return out
 
 

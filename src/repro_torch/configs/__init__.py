@@ -13,6 +13,7 @@ from repro_torch.configs.base import (  # noqa: F401
     ParallelConfig,
     RGLRUConfig,
     SSMConfig,
+    TrainConfig,
     reduced,
     with_depth,
 )

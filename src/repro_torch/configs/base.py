@@ -1,8 +1,9 @@
 """Configuration dataclasses (the port's own copy of ``repro.configs.base``).
 
 ``ArchConfig`` describes a model, ``ParallelConfig`` the execution knobs
-the serving path reads, ``AnalogConfig`` the SEMULATOR analog backend.
-Field names and defaults match the reference so configs read the same.
+the serving and training paths read, ``TrainConfig`` the optimizer and
+checkpoint schedule, ``AnalogConfig`` the SEMULATOR analog backend.  Field names and defaults
+match the reference so configs read the same.
 """
 from __future__ import annotations
 
@@ -67,10 +68,42 @@ class AnalogConfig:
 
 @dataclass(frozen=True)
 class ParallelConfig:
-    """The execution knobs the serving path reads (the reference's mesh,
-    sharding and training fields have no counterpart here yet)."""
+    """The execution knobs the serving and training paths read.  The
+    reference's mesh and sharding fields wait for ROADMAP A11; its
+    ``scan_chunk`` has no counterpart (the port's recurrence has no
+    tiling, ROADMAP A9)."""
+    remat: str = "full"                # "none" | "full" | "dots"
     attn_block_kv: int = 1024          # blockwise-softmax KV block
+    xent_chunk: int = 2048             # chunked cross-entropy seq chunk
+    grad_accum: int = 1                # microbatches per step (memory knob)
+    grad_compression: str = "none"     # "none" | "int8"
+    param_dtype: str = "float32"
     compute_dtype: str = "bfloat16"
+
+    def __post_init__(self):
+        # no step of the reference reads these two (its dry run, which
+        # moves with the mesh, reports one): another value would silently
+        # change nothing
+        if self.grad_compression != "none" or self.param_dtype != "float32":
+            raise NotImplementedError(
+                "grad_compression and param_dtype other than their defaults "
+                "are not ported yet (ROADMAP A11)")
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    lr: float = 3e-4
+    warmup_steps: int = 100
+    total_steps: int = 1000
+    weight_decay: float = 0.1
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    grad_clip: float = 1.0
+    z_loss: float = 1e-4
+    seed: int = 0
+    checkpoint_every: int = 100
+    keep_checkpoints: int = 3
 
 
 @dataclass(frozen=True)

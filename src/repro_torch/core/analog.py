@@ -104,13 +104,17 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def _same_weight(a: torch.Tensor, b: torch.Tensor) -> bool:
-    """``b`` is ``a`` or a view of the same elements: a stacked period's
-    weight is a fresh view ``stack[p]`` on every forward.  The cache
-    holds ``a``, so its memory cannot be reused while the entry lives."""
-    return a is b or (a.data_ptr() == b.data_ptr() and a.shape == b.shape
-                      and a.stride() == b.stride() and a.dtype == b.dtype
-                      and a.device == b.device)
+def _same_weight(a: torch.Tensor, version: int, b: torch.Tensor) -> bool:
+    """``b`` holds the elements ``a`` held when its plan was built: ``a``
+    itself or a view of the same elements (a stacked period's weight is a
+    fresh view ``stack[p]`` on every forward), at the same ``_version``.
+    An in-place update -- an optimizer step -- bumps the version counter
+    that a tensor shares with its views and its base, so the next call
+    rebuilds.  The cache holds ``a``, so its memory cannot be reused while
+    the entry lives."""
+    return (a is b or (a.data_ptr() == b.data_ptr() and a.shape == b.shape
+                       and a.stride() == b.stride() and a.dtype == b.dtype
+                       and a.device == b.device)) and b._version == version
 
 
 def calibration_probes(key, n: int, k: int, device) -> torch.Tensor:
@@ -149,7 +153,10 @@ def fc0_shift(sfeat: torch.Tensor, f0: torch.Tensor) -> torch.Tensor:
 
 
 class _STMatmul(torch.autograd.Function):
-    """Calibrated analog forward, straight-through digital gradient."""
+    """Calibrated analog forward, straight-through digital gradient: the
+    backward's two products are plain matmuls (``ct @ w.T`` and
+    ``x.T @ ct``), as in the reference, which computes them outside any
+    kernel too."""
 
     @staticmethod
     def forward(ctx, ex: "AnalogExecutor", tag: str, x2: torch.Tensor,
@@ -253,7 +260,7 @@ class AnalogExecutor:
         self._base_params = emulator_params
         self.calibration: Dict[str, tuple] = dict(calibration or {})
         self.fast_path = fast_path
-        self._plans: Dict[str, Tuple[torch.Tensor, ConductancePlan]] = {}
+        self._plans: Dict[str, Tuple[torch.Tensor, int, ConductancePlan]] = {}
         # tag -> (plan, deployment, state, perturbed plan)
         self._state_cache: Dict[str, tuple] = {}
         # tag -> (plan, state, the plan one read cycle of the state gives)
@@ -577,15 +584,16 @@ class AnalogExecutor:
     # ------------------------------------------------------------------ #
     def _plan_for(self, w: torch.Tensor, tag: str) -> ConductancePlan:
         """Tile/pad/interleave once per bound weight; rebuilt when the tag
-        is rebound to a different tensor (another view of the same
-        elements is the same weight, ``_same_weight``)."""
+        is rebound to a different tensor or the weight was updated in
+        place (another view of the same elements at the same version is
+        the same weight, ``_same_weight``)."""
         ent = self._plans.get(tag) if tag else None
-        if ent is not None and _same_weight(ent[0], w):
+        if ent is not None and _same_weight(ent[0], ent[1], w):
             if OBS.enabled:
                 OBS.counter("analog_plan_cache_total",
                             "conductance-plan cache lookups per weight tag",
                             tag=tag, event="hit").inc()
-            return ent[1]
+            return ent[2]
         self._count_build("plan", tag)
         if OBS.enabled:
             OBS.counter("analog_plan_cache_total",
@@ -597,7 +605,7 @@ class AnalogExecutor:
         with torch.no_grad():
             plan = build_conductance_plan(w.detach(), self.acfg, self.geom)
         if tag:
-            self._plans[tag] = (w, plan)
+            self._plans[tag] = (w, w._version, plan)
         return plan
 
     def _count_build(self, kind: str, tag: str) -> None:

@@ -92,6 +92,23 @@ def tree_map(fn, tree):
     return fn(tree)
 
 
+def tree_leaves(tree) -> list:
+    """The leaves of a nested dict in ``jax.tree.leaves``' order (keys
+    sorted at every level)."""
+    if isinstance(tree, dict):
+        return [l for k in sorted(tree) for l in tree_leaves(tree[k])]
+    return [tree]
+
+
+def tree_items(tree, path: Tuple[str, ...] = ()):
+    """(key path, leaf) pairs in ``tree_leaves``' order; the path spelt as
+    ``key_path`` spells it."""
+    if isinstance(tree, dict):
+        return [kv for k in sorted(tree) for kv in tree_items(tree[k],
+                                                             path + (k,))]
+    return [(key_path(path), tree)]
+
+
 # --------------------------------------------------------------------------- #
 # Dense hook: routes matmuls through an alternative executor (the analog
 # backend installs itself here; default is a plain einsum).
@@ -112,6 +129,11 @@ def use_dense_hook(fn):
         yield
     finally:
         _HOOK.fn = prev
+
+
+def current_dense_hook():
+    """The hook ``use_dense_hook`` installed on this thread (or None)."""
+    return _HOOK.fn
 
 
 def dense(x: torch.Tensor, w: torch.Tensor, tag: str = "") -> torch.Tensor:

@@ -1,6 +1,6 @@
 """Full model: embeddings -> period-stacked decoder stack -> final norm ->
-LM head, with prefill and decode entry points (port of
-``repro.models.model``).
+LM head, with train (``lm_loss``), prefill and decode entry points and a
+chunked cross-entropy (port of ``repro.models.model``).
 
 Layers group into the arch's repeating ``pattern`` period.  The
 parameters of the ``num_periods`` full periods are stacked on a leading
@@ -9,19 +9,29 @@ axis (``decoder.scan.p{i}``, as in the reference); the reference's
 the unrolled tail (``decoder.tail.t{i}``).  The LM head is the tied
 embedding or, untied, the ``head`` projection (a ``dense()`` site tagged
 ``lm_head``).
+
+In training each stacked period runs under the reference's remat policy
+(``ParallelConfig.remat``, ``_remat_wrap``): ``"full"`` checkpoints the
+period and recomputes it in backward, ``"dots"`` keeps the outputs of
+the matrix products and recomputes the rest, ``"none"`` keeps
+everything.  The tail is not rematerialized, as in the reference.
 """
 from __future__ import annotations
 
 import contextlib
+import functools
 from typing import Any, Dict
 
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.blocks import apply_layer, layer_schema, layer_cache_schema
-from repro_torch.models.common import (ParamSchema, apply_norm, dense,
-                                       einsum, norm_schema,
-                                       scan_states_provider, stack_schema)
+from repro_torch.models.common import (ParamSchema, apply_norm,
+                                       current_dense_hook, dense, einsum,
+                                       norm_schema, scan_states_provider,
+                                       stack_schema, use_dense_hook)
 
 NEG_INF = -1e30
 
@@ -100,6 +110,52 @@ def _stack(trees):
     return torch.stack(trees)
 
 
+# "dots": the matrix products whose outputs a period keeps for backward
+# (the reference keeps dot_general outputs); ops run with grad disabled
+# (inside a custom Function's forward) are recomputed
+_DOT_OPS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
+            torch.ops.aten.bmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    if op in _DOT_OPS and torch.is_grad_enabled():
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _in_this_context(fn):
+    """``fn`` run under the dense hook installed where it was wrapped.  A
+    checkpoint recomputes in backward, on the autograd engine's thread
+    for a CUDA graph, where this thread's hook (``use_dense_hook``) is not
+    installed: without it the recompute would run an analog site
+    digitally."""
+    hook = current_dense_hook()
+
+    def run(*args):
+        with use_dense_hook(hook):
+            return fn(*args)
+
+    return run
+
+
+def _remat_wrap(fn, remat: str):
+    """``fn`` under the reference's remat policy (``_remat_wrap`` there):
+    ``"none"`` as it is; ``"full"`` checkpointed, recomputed in backward;
+    ``"dots"`` selectively checkpointed, the products' outputs kept.  The
+    recompute runs under the dense hook of the first pass."""
+    if remat == "none":
+        return fn
+    fn = _in_this_context(fn)
+    if remat == "dots":
+        return functools.partial(
+            checkpoint, fn, use_reentrant=False,
+            context_fn=functools.partial(create_selective_checkpoint_contexts,
+                                         _save_dots))
+    if remat == "full":
+        return functools.partial(checkpoint, fn, use_reentrant=False)
+    raise ValueError(f"unknown remat policy {remat!r}")
+
+
 def _run_stack(stack_params, x, *, cfg: ArchConfig, pcfg, pattern,
                tail_kinds, mode, caches, pos, positions,
                scan_group: str = "dec"):
@@ -108,29 +164,55 @@ def _run_stack(stack_params, x, *, cfg: ArchConfig, pcfg, pattern,
     period's layer returns is written back into its slice); its returned
     tree holds the same tensors.  A site-keying provider installed with
     ``use_scan_states`` sees each period announced, so analog call sites
-    are keyed ``"{scan_group}.{p}:{tag}#{j}"`` as in the reference."""
+    are keyed ``"{scan_group}.{p}:{tag}#{j}"`` as in the reference.  In
+    training with grad enabled a period runs under ``pcfg.remat``; its
+    scope is entered inside the checkpointed function, so a recompute
+    keys its sites as the first pass did.  Under ``"dots"`` with a dense
+    hook installed, each period first runs on one token without grad, so
+    the hook's cache builds happen outside the checkpointed region (the
+    hook sees each site once more a step)."""
     provider = scan_states_provider()
     new_caches: Dict[str, Any] = {"scan": {}, "tail": {}}
     scan_params = stack_params["scan"]
+
+    def period_fn(x, lp, lcs, p, positions):
+        ncs = {}
+        scope = (provider.scan_period(scan_group, p)
+                 if provider is not None else contextlib.nullcontext())
+        with scope:
+            for i, kind in enumerate(pattern):
+                lc = None if lcs is None else lcs[i]
+                x, nc = apply_layer(lp[f"p{i}"], x, cfg=cfg, pcfg=pcfg,
+                                    kind=kind, mode=mode, cache=lc,
+                                    pos=pos, positions=positions)
+                if nc is not None:
+                    ncs[f"p{i}"] = nc
+                    if mode == "decode":
+                        _write_back(lc, nc)
+        return x, ncs
+
+    period = period_fn
+    if mode == "train" and torch.is_grad_enabled():
+        period = _remat_wrap(period_fn, pcfg.remat)
+    # "dots" indexes the outputs it keeps by each op's call count, so the
+    # recompute must run the ops its first pass ran; a dense hook builds
+    # its per-weight caches on a site's first call and only looks them up
+    # after, so those builds run first, on one token and without grad,
+    # before the period enters the checkpointed region
+    warm = (period is not period_fn and pcfg.remat == "dots"
+            and current_dense_hook() is not None)
     if scan_params:
         n = next(iter(scan_params.values()))["norm1"]["w"].shape[0]
         per = []
         for p in range(n):
+            lcs = ([_select(caches["scan"][f"p{i}"], p)
+                    for i in range(len(pattern))]
+                   if mode == "decode" else None)
             lp = _select(scan_params, p)
-            ncs = {}
-            scope = (provider.scan_period(scan_group, p)
-                     if provider is not None else contextlib.nullcontext())
-            with scope:
-                for i, kind in enumerate(pattern):
-                    lc = (_select(caches["scan"][f"p{i}"], p)
-                          if mode == "decode" else None)
-                    x, nc = apply_layer(lp[f"p{i}"], x, cfg=cfg, pcfg=pcfg,
-                                        kind=kind, mode=mode, cache=lc,
-                                        pos=pos, positions=positions)
-                    if nc is not None:
-                        ncs[f"p{i}"] = nc
-                        if mode == "decode":
-                            _write_back(lc, nc)
+            if warm:
+                with torch.no_grad():
+                    period_fn(x[:1, :1], lp, None, p, positions[:, :1])
+            x, ncs = period(x, lp, lcs, p, positions)
             per.append(ncs)
         if mode == "prefill":
             new_caches["scan"] = _stack(per)
@@ -181,6 +263,50 @@ def compute_logits(params, h, cfg: ArchConfig):
         mask = torch.arange(cfg.padded_vocab, device=h.device) >= cfg.vocab_size
         logits = torch.where(mask[None, None, :], NEG_INF, logits)
     return logits
+
+
+def chunked_xent(params, h, targets, mask, *, cfg: ArchConfig,
+                 chunk: int, z_coef: float = 0.0) -> torch.Tensor:
+    """Mean xent (plus ``z_coef * lse**2``) over the masked positions; the
+    logits live one sequence chunk at a time, each chunk recomputed in
+    backward (the reference's ``jax.checkpoint`` per chunk)."""
+    B, S, D = h.shape
+    ck = min(chunk, S)
+    if S % ck != 0:
+        ck = S
+
+    def chunk_fn(hc, tc, mc):
+        logits = compute_logits(params, hc, cfg)
+        lse = torch.logsumexp(logits, dim=-1)
+        ll = torch.gather(logits, -1, tc[..., None].long())[..., 0] - lse
+        zl = z_coef * torch.square(lse) if z_coef else 0.0
+        m = mc.float()
+        return ((-ll + zl) * m).sum(), m.sum()
+
+    loss_sum = torch.zeros((), dtype=torch.float32, device=h.device)
+    denom = torch.zeros((), dtype=torch.float32, device=h.device)
+    recompute = _in_this_context(chunk_fn)       # an untied head may be analog
+    for c in range(S // ck):
+        sl = slice(c * ck, (c + 1) * ck)
+        l, m = (checkpoint(recompute, h[:, sl], targets[:, sl], mask[:, sl],
+                           use_reentrant=False)
+                if torch.is_grad_enabled() else
+                chunk_fn(h[:, sl], targets[:, sl], mask[:, sl]))
+        loss_sum = loss_sum + l
+        denom = denom + m
+    return loss_sum / torch.clamp_min(denom, 1.0)
+
+
+def lm_loss(params, batch, *, cfg: ArchConfig, pcfg,
+            compute_dtype=torch.bfloat16, z_coef: float = 1e-4):
+    """batch: {tokens, targets, mask}.  Returns (loss, {"xent", "aux"});
+    the port's families have no auxiliary loss (aux is 0)."""
+    h, _ = forward(params, batch["tokens"], cfg=cfg, pcfg=pcfg, mode="train",
+                   compute_dtype=compute_dtype)
+    loss = chunked_xent(params, h, batch["targets"], batch["mask"], cfg=cfg,
+                        chunk=pcfg.xent_chunk, z_coef=z_coef)
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    return loss + aux, {"xent": loss, "aux": aux}
 
 
 def prefill(params, tokens, *, cfg: ArchConfig, pcfg,

@@ -6,7 +6,9 @@ diagonal gated linear recurrence
 
 which ``chunked_recurrence`` hands to the linear-scan entry point
 (``kernels.linear_scan.ops``): a CUDA tensor launches the hand-written
-kernel (B6) or raises, a CPU tensor takes its plain version.  The
+kernel (B6) or raises, a CPU tensor takes its plain version.  In
+training its gradient is one more launch of the same kernel on reversed
+inputs (``ops._LinearScan``).  The
 reference runs an associative scan within chunks of its ``scan_chunk``
 steps; the kernel walks the whole sequence with a float32 carry, so the
 two sum in another order and agree within a tolerance, not bit for bit.

@@ -100,7 +100,10 @@ print('MISSING', [m for m in NEW if m not in sys.modules])
             "repro_torch.core.deployment", "repro_torch.launch.quickstart",
             "repro_torch.kernels.emulator_block.ops",
             "repro_torch.kernels._build", "repro_torch.models.ssm",
-            "repro_torch.launch.batching"]
+            "repro_torch.launch.batching", "repro_torch.launch.train",
+            "repro_torch.runtime.trainer", "repro_torch.optim.adamw",
+            "repro_torch.checkpoint.manager", "repro_torch.data.pipeline",
+            "repro_torch.parallel.collectives"]
     new += ["repro_torch.obs" + m for m in ("", ".trace", ".registry",
                                             ".export", ".sentinel")]
     new += [f"repro_torch.kernels.{k}.{m}"
