@@ -182,10 +182,27 @@ JAX or of the JAX package.  Phases (any failure exits non-zero):
      steps, a ``SimulatedFailure`` at step 3: one restart, steps 2 run
      twice, the end at step 6; the 4.3 GB state's device-to-host, write
      and restore seconds; ``grad_accum=2`` against 1 on a mask of equal
-     counts (grads within rtol 1e-4 plus 1e-5 of each leaf's max; the
-     updates they give printed against rtol 1e-4 plus 1e-4 lr); a JSON
-     ``training`` line
- 13. a JSON ``kernels`` line, then the card line, then the result line.
+     counts (grads within rtol 1e-4 plus 1e-5 of each leaf's max), and
+     grad_accum=2's train step against a step from the same state on the
+     two microbatches' grads averaged by hand (the new params within rtol
+     1e-4); a JSON ``training`` line
+ 13. the dense and MoE decoder families through the serve CLI at full
+     width on the phase-3 net (``DEC_SERVES``): qwen1.5-110b and
+     command-r-plus-104b cut to 1 layer, deepseek-coder-33b to 2 (batch
+     2, prompt 16, 4 tokens, MLPs analog), phi3.5-moe-42b-a6.6b to 2 and
+     llama4-scout-17b-a16e to one (C, C, C, G) period (batch 4, prompt
+     32, 8 tokens, attention projections analog: the experts never call
+     dense()).  Per serve: B1's launches (one a site a forward), the
+     first decode call (M = batch) of each site shape held against the
+     plain version (in column chunks) at rtol 1e-4 / atol 1e-5, it and
+     the first prefill call timed beside their bounds, prefill ms,
+     decode ms a step, B1's share of each, the executor's plan and cache
+     bytes, peak memory, the MoE archs' share of routed assignments
+     dropped at prefill; then, digitally in fp32, prefill + 3 decode
+     steps against one forward (an MoE arch at a capacity that holds
+     every assignment), rtol 1e-3, atol 1e-3 of the logits' scale; a
+     JSON ``decoders`` line
+ 14. a JSON ``kernels`` line, then the card line, then the result line.
      The B2, B3 and B6 rows' ``ms`` is the kernel alone (B2, B3 on weights
      packed once); their ``call_ms`` is the whole call a user makes, which
      also packs the weights on the host (B2, B3) or folds h0 (B6).  Every
@@ -201,7 +218,9 @@ JAX or of the JAX package.  Phases (any failure exits non-zero):
      ``launches``, and in the fresh executors' check forwards, not counted
      there; B6's in its Function's forward and backward, both counted;
      ``training_path``: B1's first training call;
-     ``training_backward``: B6's backward call).
+     ``training_backward``: B6's backward call), and phase 13's
+     (``decoder_launches`` per arch, also counted in ``launches``;
+     ``decoder_path``: B1's prefill and decode calls at each site shape).
 """
 from __future__ import annotations
 
@@ -1032,7 +1051,11 @@ def main() -> None:
     train = training_phase(dev, card, npz)
     torch.cuda.empty_cache()
 
-    # ---- phase 13: the kernels line --------------------------------------
+    # ---- phase 13: the dense and MoE families at full width --------------
+    dec = decoder_phase(dev, card, npz)
+    torch.cuda.empty_cache()
+
+    # ---- phase 14: the kernels line --------------------------------------
     ebk = "emulator_block/emulator_block.py:"
     b1_head = next(r for r in b1_shapes if r["shape"].startswith("mlp.up")
                    and r["shape"].endswith(" M=4"))
@@ -1043,14 +1066,15 @@ def main() -> None:
         entry("emulator_block_unified", src + "emulator_block_unified.cu",
               ebk + "295",
               b1_launches + serv["b1"] + sum(life["b1"].values())
-              + train["b1"]["training"],
+              + train["b1"]["training"] + sum(dec["b1"].values()),
               max(max_abs["B1"], ni["b1_err"], rec["b1_err"], serv["b1_err"],
-                  life["b1_err"], train["b1_err"]),
+                  life["b1_err"], train["b1_err"], dec["b1_err"]),
               b1_head, b1_shapes, nonideal_launches=ni["b1"],
               model_launches=rec["b1"], model_path=rec["b1_rows"],
               engine_launches=serv["b1"], engine_path=serv["b1_rows"],
               lifetime_launches=life["b1"], lifetime_path=life["b1_rows"],
-              training_launches=train["b1"], training_path=train["b1_rows"]),
+              training_launches=train["b1"], training_path=train["b1_rows"],
+              decoder_launches=dec["b1"], decoder_path=dec["b1_rows"]),
         entry("emulator_block_unified (bf16 mode)",
               src + "emulator_block_unified.cu", ebk + "295", b1_bf16_launches,
               max_abs["B1 bf16"], b1_bf16_head, b1_bf16_shapes),
@@ -1078,6 +1102,7 @@ def main() -> None:
     print(json.dumps({"serving": serv["rows"][0]}), flush=True)
     print(json.dumps({"lifetime": life["rows"]}), flush=True)
     print(json.dumps({"training": train["row"]}), flush=True)
+    print(json.dumps({"decoders": dec["rows"]}), flush=True)
     print(f"[done] {time.perf_counter() - t_start:.1f} s", flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
@@ -1742,7 +1767,7 @@ def recurrent_phase(dev, card, npz):
         toks = torch.randint(0, cfg.vocab_size, (B, P + T), generator=g,
                              device=dev)
         with torch.no_grad():
-            hs, _ = M.forward(params, toks, cfg=cfg, pcfg=pcfg, mode="prefill",
+            hs, _, _ = M.forward(params, toks, cfg=cfg, pcfg=pcfg, mode="prefill",
                               compute_dtype=f32)
             full_logits = M.compute_logits(params, hs[:, P - 1:], cfg)
             del hs
@@ -2949,9 +2974,9 @@ TRAIN_REC = dict(arch="recurrentgemma-2b", layers=3, B=2, S=128, steps=3)
 TRAIN_CKPT = dict(arch="gemma3-1b", layers=2, B=4, S=32, steps=6, fail_at=3)
 TRAIN_LR, TRAIN_WARMUP = 1e-3, 2
 # grad_accum=2 against 1 (fp32, a mask of equal counts): grads within
-# rtol 1e-4 plus 1e-5 of each leaf's largest |grad|; the updates they give
-# are printed against rtol 1e-4 plus 1e-4 of lr (1.0 and more can occur
-# where the Adam and decay terms cancel: 0.87 on the CPU's reduced model)
+# rtol 1e-4 plus 1e-5 of each leaf's largest |grad|; grad_accum=2's train
+# step against a step from the same state on the two microbatches' grads
+# averaged by hand: the new params within rtol 1e-4
 ACCUM_RTOL, ACCUM_ATOL_SHARE = 1e-4, 1e-5
 
 
@@ -3001,7 +3026,8 @@ def training_phase(dev, card, npz):
     reversed inputs, one layer's input gradients against autograd of the
     plain loop, the backward timed beside its bound.  (d) the trainer
     recovers from an injected failure; checkpoint save and restore
-    seconds; grad_accum=2 against 1 (grads gated, updates printed).
+    seconds; grad_accum=2 against 1 (grads gated) and its step against a
+    step on the microbatches' grads averaged by hand (gated).
     Returns the launches, the held
     calls' errors and rows, and a summary row."""
     import dataclasses
@@ -3444,22 +3470,44 @@ def training_phase(dev, card, npz):
         if use > 1.0 or lerr > 1e-5:
             fail(f"(d) grad_accum=2 disagrees with 1: gate use {use:.2f}, "
                  f"loss rel {lerr:.2e}")
-        # the update each gives (AdamW on copies of the restored state),
-        # printed: rtol 1e-4 of an element's update plus 1e-4 of lr (where
-        # the Adam and decay terms cancel, an update is ~0)
-        deltas = []
-        for g in (g1, g2):
-            p = tree_map(torch.clone, state["params"])
-            o = tree_map(torch.clone, state["opt"])
-            _, _, om = adamw_update(p, g, o, state["step"], tcfg)
-            deltas.append([v - p0 for (_, v), (_, p0) in
-                           zip(tree_items(p), tree_items(state["params"]))])
-            del p, o
-        lr_now = float(om["lr"])
-        upd_use = max(float(((d2 - d1).abs() / (ACCUM_RTOL * d1.abs()
-                                                + ACCUM_RTOL * lr_now)).max())
-                      for d1, d2 in zip(*deltas))
-        del state, g1, g2, batch, deltas
+        del g1, g2
+        # grad_accum=2's train step against its definition: a step from the
+        # same state on the mean of the two microbatches' own grads
+        # (grad_accum=1 each), taken by hand; each on copies of the state
+        n = d["B"] // 2
+        acc = None
+        for i in range(2):
+            _, _, gi = S.make_grad_fn(cfg, pcfg, tcfg)(
+                state["params"], {k: v[i * n:(i + 1) * n]
+                                  for k, v in batch.items()})
+            gi = [x for _, x in tree_items(gi)]
+            acc = gi if acc is None else [a + x for a, x in zip(acc, gi)]
+        by_hand = S._unflatten(state["params"], [a / 2 for a in acc])
+        del acc, gi
+
+        def copy_of_state():
+            return {"params": tree_map(torch.clone, state["params"]),
+                    "opt": tree_map(torch.clone, state["opt"]),
+                    "step": state["step"].clone()}
+
+        stepped = copy_of_state()
+        S.make_train_step(cfg, dataclasses.replace(pcfg, grad_accum=2),
+                          tcfg)(stepped, batch)
+        want_p = copy_of_state()
+        adamw_update(want_p["params"], by_hand, want_p["opt"], state["step"],
+                     tcfg)
+        upd_use, upd_equal = 0.0, True
+        for (k, got), (_, want) in zip(tree_items(stepped["params"]),
+                                       tree_items(want_p["params"])):
+            diff = (got - want).abs()
+            upd_equal = upd_equal and bool(torch.equal(got, want))
+            upd_use = max(upd_use, float((diff / (ACCUM_RTOL * want.abs())
+                                          .clamp_min(1e-30)).max()))
+        if upd_use > 1.0:
+            fail(f"(d) grad_accum=2's step disagrees with the step on the "
+                 f"microbatches' grads averaged by hand: {upd_use:.2f} of "
+                 f"rtol {ACCUM_RTOL}")
+        del state, batch, stepped, want_p, by_hand
     finally:
         shutil.rmtree(ckdir, ignore_errors=True)
     print(f"[train] (d) Trainer on {cfg.name}, fp32, B={d['B']} S={d['S']}: "
@@ -3469,17 +3517,300 @@ def training_phase(dev, card, npz):
           f"{write_s:.2f} s, restore {restore_s:.2f} s; run {run_s:.1f} s; "
           f"grad_accum=2 against 1: grads within {use:.2f} of the gate "
           f"(rtol {ACCUM_RTOL} + {ACCUM_ATOL_SHARE} of each leaf's max), "
-          f"loss rel {lerr:.1e}, the updates {upd_use:.2f} of rtol "
-          f"{ACCUM_RTOL} + {ACCUM_RTOL} lr (printed) [{card}]", flush=True)
+          f"loss rel {lerr:.1e}; its step's new params against a step on "
+          f"the microbatches' grads averaged by hand {upd_use:.2f} of rtol "
+          f"{ACCUM_RTOL} (bit-equal {upd_equal}) [{card}]", flush=True)
     row["trainer"] = dict(arch=cfg.name, summary=summary, steps_run=steps_run,
                           state_gb=state_bytes / 1e9, save_s=saves,
                           write_s=write_s, restore_s=restore_s, run_s=run_s,
                           accum_gate_use=use, accum_loss_rel=lerr,
-                          accum_update_use=upd_use)
+                          accum_step_use=upd_use, accum_step_equal=upd_equal)
     torch.cuda.empty_cache()
     secs = time.perf_counter() - t_phase
     row["phase_s"] = secs
     print(f"[train] phase 12 took {secs:.1f} s", flush=True)
+    return out
+
+
+# phase 13's serves, random weights at full published widths, depth cut:
+# (arch, layers, batch, prompt, tokens, analog layers).  The dense archs'
+# MLPs and the MoE archs' attention projections run on the phase-3 net
+# (B1); the MoE archs' experts never call dense() and stay digital, as in
+# the reference.  llama4-scout's 4 layers are one (C, C, C, G) period; its
+# published chunk (8192) is longer than the prompt, so its serve never
+# crosses a chunk (the CPU tests hold the boundary).
+DEC_SERVES = (("qwen1.5-110b", 1, 2, 16, 4, "mlp"),
+              ("command-r-plus-104b", 1, 2, 16, 4, "mlp"),
+              ("deepseek-coder-33b", 2, 2, 16, 4, "mlp"),
+              ("phi3.5-moe-42b-a6.6b", 2, 4, 32, 8, "attn"),
+              ("llama4-scout-17b-a16e", 4, 4, 32, 8, "attn"))
+# the plain version of B1 holds ~130 KB of per-plan tensors a block: at
+# the 1.6 M-block sites it runs on column chunks of at most this many blocks
+PLAIN_CHUNK_BLOCKS = 16_384
+
+
+def _analog_bytes(ex):
+    """(bytes of the executor's conductance plans, bytes of every tensor
+    its plan, state and read-plan caches hold), each storage once."""
+    seen, plans, total = set(), 0, 0
+    caches = ((ex._plans, lambda p: (p.g_feat, p.g_norm)),
+              (ex._state_cache, lambda st: (st.gf,)),
+              (ex._read_cache, lambda p: (p.g_feat, p.g_norm)))
+    for i, (cache, tensors) in enumerate(caches):
+        for ent in cache.values():
+            for t in tensors(ent[2]):
+                key = t.untyped_storage().data_ptr()
+                if key in seen:
+                    continue
+                seen.add(key)
+                n = t.untyped_storage().nbytes()
+                total += n
+                plans += n if i == 0 else 0
+    return plans, total
+
+
+def _plain_by_columns(aux, gn, u, pos):
+    """B1's plain version on ``gn`` (NB, NO, ...) in chunks of output
+    columns of at most ``PLAIN_CHUNK_BLOCKS`` blocks: the same (2,
+    M*NB*NO, O) rows as one call (M-major, the block ``nb*NO + no``
+    innermost)."""
+    import torch
+    from repro_torch.kernels.emulator_block import emulator_block as eb
+    NB, NO = gn.shape[:2]
+    M = u.shape[0]
+    step = max(1, PLAIN_CHUNK_BLOCKS // NB)
+    outs = []
+    for a in range(0, NO, step):
+        b = min(NO, a + step)
+        y = eb.emulator_block_unified_plain(aux, gn[:, a:b].contiguous(), u,
+                                            pos)
+        outs.append(y.reshape(2, M, NB, b - a, -1))
+    return torch.cat(outs, dim=3).reshape(2, M * NB * NO, -1)
+
+
+def _holding_every_assignment(cfg):
+    """``cfg`` with an evaluation capacity of every token (factor E / K):
+    no assignment is dropped, so a token's output does not depend on how
+    many batch-mates its call has."""
+    import dataclasses
+    m = cfg.moe
+    return dataclasses.replace(cfg, moe=dataclasses.replace(
+        m, eval_capacity_factor=m.num_experts / m.top_k))
+
+
+def decoder_phase(dev, card, npz):
+    """Phase 13: the dense and MoE decoder families (qwen1.5-110b,
+    command-r-plus-104b, deepseek-coder-33b; phi3.5-moe-42b-a6.6b,
+    llama4-scout-17b-a16e) served at full width through the serve CLI
+    on the phase-3 net (``DEC_SERVES``).  B1's launch count is set to 0
+    just before each serve and read just after (one launch a site a
+    forward).  A recording wrapper around the B1 wrapper the dispatcher
+    calls keeps the first prefill call and the first decode call (M =
+    batch) of each site shape: the decode call is held against the plain
+    version at the fp32 gate (in column chunks, ``_plain_by_columns``),
+    and both are timed beside their bounds.  A wrapper around
+    ``models.moe.slots`` counts the routed assignments dropped at
+    prefill.  Then, digitally in fp32, prefill + ``REC_DECODE`` decode
+    steps against one forward over the same tokens (an MoE arch at a
+    capacity that holds every assignment: a token's output depends on
+    its batch-mates through the capacity).  Returns B1's launches per
+    arch, its largest error, its rows and one row per serve."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ParallelConfig
+    from repro_torch.kernels.emulator_block import emulator_block as eb
+    from repro_torch.launch import serve
+    from repro_torch.models import model as M
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.runtime import steps as S
+    eb_ops = importlib.import_module("repro_torch.kernels.emulator_block.ops")
+    out = {"b1": {}, "b1_err": 0.0, "b1_rows": [], "rows": []}
+    t_phase = time.perf_counter()
+    for arch, layers, B, P, G, analog in DEC_SERVES:
+        t_serve = time.perf_counter()
+        argv = ["--arch", arch, "--layers", str(layers), "--batch", str(B),
+                "--prompt-len", str(P), "--gen", str(G), "--seed", "0",
+                "--analog-backend", "emulator", "--emulator-params", str(npz),
+                "--analog-layers", analog]
+        real_b1, real_slots = eb_ops.emulator_block_unified_cuda, moe_mod.slots
+        calls = {}
+        routed = []
+
+        def recording_b1(aux, g_norm, u01, pos01, **kw):
+            y = real_b1(aux, g_norm, u01, pos01, **kw)
+            key = (u01.shape[0], tuple(g_norm.shape[:2]))
+            if u01.shape[0] in (B, B * P) and key not in calls:
+                calls[key] = (aux, g_norm, u01, pos01, kw, y)
+            return y
+
+        def recording_slots(expert_idx, E, C):
+            slot, keep = real_slots(expert_idx, E, C)
+            if expert_idx.shape[0] == B * P:
+                routed.append(keep)
+            return slot, keep
+
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        eb_ops.emulator_block_unified_cuda = recording_b1
+        moe_mod.slots = recording_slots
+        eb.emulator_block_unified_cuda.launches = 0
+        try:
+            sess, res = serve.main(argv)
+        finally:
+            eb_ops.emulator_block_unified_cuda = real_b1
+            moe_mod.slots = real_slots
+        b1 = eb.emulator_block_unified_cuda.launches
+        peak = torch.cuda.max_memory_allocated(dev)
+        plan_b, held_b = _analog_bytes(sess.ex)
+        cfg, full = sess.cfg, get_config(arch)
+        sites = sess.sites()
+        n_weights = sum(w.numel() for w in sites.values())
+        want_b1 = len(sites) * G
+        pre_ms = res["prefill_s"] * 1e3
+        dec_ms = res["decode_s"] * 1e3 / (G - 1)
+        dropped = (float(sum(int((~k).sum()) for k in routed))
+                   / max(1, sum(k.numel() for k in routed)))
+        print(f"[decoders] {cfg.name}: d_model={cfg.d_model} d_ff={cfg.d_ff} "
+              f"vocab={cfg.vocab_size} layers={cfg.num_layers} "
+              f"({''.join(cfg.layer_kinds)}) sites={len(sites)} ({analog}, "
+              f"{n_weights / 1e9:.3f} G analog weights); B1 launches {b1} "
+              f"(expected {want_b1})", flush=True)
+        if (cfg.d_model, cfg.d_ff, cfg.vocab_size, cfg.num_heads) != (
+                full.d_model, full.d_ff, full.vocab_size, full.num_heads):
+            fail(f"{arch} was not served at full width")
+        if not b1 or b1 != want_b1:
+            fail(f"B1 launched {b1} times serving {arch}, expected {want_b1}")
+        if res["tokens"].shape != (B, G) or not np_isfinite(res["logits"]):
+            fail(f"{arch}: tokens {res['tokens'].shape} or non-finite logits")
+        if cfg.moe is not None and not routed:
+            fail(f"{arch}: no MoE routing recorded at prefill")
+        # the site shapes: (NB, NO) -> the tags of that shape, and the
+        # number of sites of each
+        rows_a_block = sess.ex.acfg.rows * sess.ex.geom.tiles
+        shapes, n_of = {}, {}
+        for sk, w in sites.items():
+            nbno = (-(-w.shape[0] // rows_a_block), w.shape[1])
+            shapes.setdefault(nbno, set()).add(sk.split(":")[-1].split("#")[0])
+            n_of[nbno] = n_of.get(nbno, 0) + 1
+        if {k[1] for k in calls} != set(shapes) or len(calls) != 2 * len(shapes):
+            fail(f"{arch}: B1 calls recorded at {sorted(calls)}, expected a "
+                 f"prefill and a decode call at each of {sorted(shapes)}")
+        b1_rows, b1_ms = [], {}
+        for (m, (NB, NO)), (aux, gn, u, pos, kw, y) in sorted(calls.items()):
+            tag = "/".join(sorted(shapes[(NB, NO)]))
+            if kw.get("shift") is not None or kw.get(
+                    "compute_dtype", torch.float32) != torch.float32:
+                fail(f"{arch} {tag}: B1 call is not the fp32 ideal corner")
+            label = f"B1 {arch} {tag} M={m} NB={NB} NO={NO}"
+            pms, err = None, None
+            if m == B:                       # the decode call: held
+                a0, a1 = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+                a0.record()
+                want = _plain_by_columns(aux, gn, u, pos)
+                a1.record()
+                torch.cuda.synchronize()
+                pms = a0.elapsed_time(a1)
+                err = compare(label + " (decode call)", y, want)
+                out["b1_err"] = max(out["b1_err"], err)
+                del want
+            ms = cuda_ms(lambda: eb.emulator_block_unified_cuda(aux, gn, u, pos),
+                         iters=3 if m == B else 1, warmup=1)
+            b1_ms[(m, NB, NO)] = ms
+            D, W = gn.shape[2], gn.shape[4]
+            O = aux["fcs"][-1][0].shape[1]
+            flat = aux["fcs"][0][0].shape[0]
+            nbytes, gemm, other = unified_work(m, NB, NO, D, W, O, flat, None)
+            bms, by = bound_ms(nbytes, (gemm + other, FP32_FLOP_S))
+            print(f"[time] {label}: kernel {ms:.3f} ms, plain "
+                  f"{'not run' if pms is None else f'{pms:.3f} ms (column chunks)'}"
+                  f", bound {bms:.3f} ms ({by}: {nbytes / 1e9:.3f} GB, "
+                  f"{(gemm + other) / 1e9:.2f} GFLOP at fp32) [{card}]",
+                  flush=True)
+            b1_rows.append(dict(
+                shape=f"{arch} {tag} M={m} NB={NB} NO={NO}", ms=ms,
+                plain_ms=pms, bound_ms=bms, bound_by=by, bytes=nbytes,
+                flops=gemm + other, max_abs_err=err))
+        calls.clear()
+        out["b1"][arch] = b1
+        out["b1_rows"].extend(b1_rows)
+        # B1's share: each site launches once a forward at its shape's time
+        per_fwd = {m: sum(b1_ms[(m,) + k] * n for k, n in n_of.items())
+                   for m in (B, B * P)}
+        print(f"[decoders] {arch} serve {B}x{P} + {G - 1} decode steps: "
+              f"prefill {pre_ms:.1f} ms (B1 {per_fwd[B * P]:.1f} ms of it), "
+              f"decode {dec_ms:.2f} ms a step (B1 {per_fwd[B]:.2f} ms); "
+              f"plans {plan_b / 1e9:.2f} GB, executor caches "
+              f"{held_b / 1e9:.2f} GB ({held_b / max(1, n_weights):.1f} B an "
+              f"analog weight); peak memory {peak / 2**30:.2f} GiB"
+              + (f"; {100 * dropped:.2f}% of routed assignments dropped at "
+                 f"prefill" if cfg.moe is not None else "")
+              + f" [{card}]", flush=True)
+        row = dict(arch=arch, layers=layers, batch=B, prompt=P, gen=G,
+                   analog_layers=analog, sites=len(sites),
+                   analog_weights=n_weights, b1_launches=b1,
+                   prefill_ms=pre_ms, decode_ms_step=dec_ms,
+                   b1_prefill_ms=per_fwd[B * P], b1_decode_ms=per_fwd[B],
+                   plan_gb=plan_b / 1e9, held_gb=held_b / 1e9,
+                   peak_gib=peak / 2**30,
+                   dropped_share=dropped if cfg.moe is not None else None)
+        del sess, res, routed
+        torch.cuda.empty_cache()
+
+        # prefill + decode == one forward, digital, fp32 (TF32 is off)
+        f32 = torch.float32
+        ccfg = cfg if cfg.moe is None else _holding_every_assignment(cfg)
+        params = S.init_model_params(1, ccfg, dev)
+        pcfg = ParallelConfig(compute_dtype="float32",
+                              attn_block_kv=min(1024, P))
+        g = torch.Generator(device=dev)
+        g.manual_seed(901)
+        T = REC_DECODE
+        toks = torch.randint(0, ccfg.vocab_size, (B, P + T), generator=g,
+                             device=dev)
+        with torch.no_grad():
+            hs, _, _ = M.forward(params, toks, cfg=ccfg, pcfg=pcfg,
+                                 mode="prefill", compute_dtype=f32)
+            full_logits = M.compute_logits(params, hs[:, P - 1:], ccfg)
+            del hs
+            logits, pc = M.prefill(params, toks[:, :P], cfg=ccfg, pcfg=pcfg,
+                                   compute_dtype=f32)
+            cache = serve._splice_tree(M.zeros_cache(M.model_cache_schema(
+                ccfg, B, P + T, dtype=f32), dev), pc)
+            del pc
+            steps = [logits]
+            for i in range(T):
+                logits, cache = M.decode_step(params, toks[:, P + i:P + i + 1],
+                                              cache, P + i, cfg=ccfg,
+                                              pcfg=pcfg, compute_dtype=f32)
+                steps.append(logits)
+        V = ccfg.vocab_size
+        want_l = full_logits[..., :V]
+        scale = float(want_l.abs().max())
+        errs = []
+        for i, got in enumerate(steps):
+            d = (got[:, :V] - want_l[:, i]).abs()
+            errs.append(float(d.max()))
+            if not bool((d <= REC_ATOL * scale
+                         + REC_RTOL * want_l[:, i].abs()).all()):
+                fail(f"{arch}: step {i} of prefill + decode disagrees with "
+                     f"the full forward (max abs {errs[-1]:.3e}, logits' "
+                     f"scale {scale:.3e})")
+        print(f"[decoders] {arch} prefill({P}) + {T} decode steps vs one "
+              f"forward over {P + T} tokens (fp32, TF32 off"
+              + ("" if cfg.moe is None else ", capacity of every assignment")
+              + f"): max abs per step {', '.join(f'{e:.2e}' for e in errs)}; "
+              f"logits' scale {scale:.3e} (gate rtol {REC_RTOL}, atol "
+              f"{REC_ATOL} of scale) ok", flush=True)
+        row["consistency_max_abs"] = max(errs)
+        row["logits_scale"] = scale
+        row["serve_s"] = time.perf_counter() - t_serve
+        out["rows"].append(row)
+        del params, toks, full_logits, want_l, steps, cache, logits
+        torch.cuda.empty_cache()
+        print(f"[decoders] {arch} took {row['serve_s']:.1f} s", flush=True)
+    print(f"[decoders] phase 13 took {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
     return out
 
 

@@ -23,6 +23,17 @@ ATTN_KINDS = (GLOBAL_ATTN, LOCAL_ATTN, CHUNKED_ATTN, BIDIR_ATTN)
 
 
 @dataclass(frozen=True)
+class MoEConfig:
+    num_experts: int = 16
+    top_k: int = 2
+    capacity_factor: float = 1.25
+    eval_capacity_factor: float = 2.0
+    shared_expert: bool = False        # llama4-style always-on shared expert
+    router_aux_coef: float = 0.01
+    router_jitter: float = 0.0
+
+
+@dataclass(frozen=True)
 class SSMConfig:
     """Mamba-1 mixer configuration."""
     d_state: int = 16
@@ -136,6 +147,7 @@ class ArchConfig:
     encoder_layers: int = 0
     frontend: str = "none"
     frontend_tokens: int = 256
+    moe: Optional[MoEConfig] = None
     ssm: Optional[SSMConfig] = None
     rglru: Optional[RGLRUConfig] = None
     analog: AnalogConfig = field(default_factory=AnalogConfig)
@@ -163,7 +175,7 @@ class ArchConfig:
 
 def reduced(cfg: ArchConfig, *, layers: Optional[int] = None) -> ArchConfig:
     """A tiny same-family config for CPU smoke tests (the reference's
-    ``reduced``; its MoE replacement comes with the MoE families)."""
+    ``reduced``)."""
     pat = cfg.pattern
     n_layers = layers if layers is not None else max(len(pat), 2)
     kw = dict(
@@ -179,6 +191,9 @@ def reduced(cfg: ArchConfig, *, layers: Optional[int] = None) -> ArchConfig:
         frontend_tokens=4 if cfg.frontend != "none" else cfg.frontend_tokens,
         encoder_layers=2 if cfg.encoder_layers else 0,
     )
+    if cfg.moe is not None:
+        kw["moe"] = dataclasses.replace(cfg.moe, num_experts=4,
+                                        top_k=min(cfg.moe.top_k, 2))
     if cfg.ssm is not None:
         kw["ssm"] = dataclasses.replace(cfg.ssm, d_state=4, dt_rank=8)
     if cfg.rglru is not None:

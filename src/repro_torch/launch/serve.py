@@ -9,12 +9,15 @@ CLI:
       --analog-backend emulator --emulator-params emulator.npz
 
 runs on the GPU (``--device cpu`` runs on the CPU).  ``--arch`` is
-gemma3-1b, recurrentgemma-2b, falcon-mamba-7b or deepseek-coder-33b; the
-reference's other archs raise ``NotImplementedError`` (ROADMAP A9).
-``--reduced`` serves the reference's tiny same-family config;
-``--layers`` alone keeps the full widths and cuts the depth.
-``--analog-backend`` is ``digital``, ``emulator`` (needs
-``--emulator-params``), ``analytic`` or ``circuit``.
+gemma3-1b, recurrentgemma-2b, falcon-mamba-7b, deepseek-coder-33b,
+qwen1.5-110b, command-r-plus-104b, phi3.5-moe-42b-a6.6b or
+llama4-scout-17b-a16e; the reference's two frontend archs raise
+``NotImplementedError`` (ROADMAP A9c).  ``--reduced`` serves the
+reference's tiny same-family config; ``--layers`` alone keeps the full
+widths and cuts the depth.  ``--analog-backend`` is ``digital``,
+``emulator`` (needs ``--emulator-params``), ``analytic`` or ``circuit``.
+The MoE archs' experts never call dense(): their analog sites are the
+attention projections, ``--analog-layers attn``.
 
 Under a device corner (``nonideal``):
 
@@ -338,7 +341,8 @@ def build_parser() -> argparse.ArgumentParser:
                          "--analog-backend=emulator")
     ap.add_argument("--analog-layers", default="mlp",
                     help="comma-separated tag prefixes of the projections "
-                         "that run analog (default: mlp)")
+                         "that run analog (default: mlp; the MoE archs' "
+                         "analog sites are attn)")
     ap.add_argument("--scenario", default=None,
                     help="registered device corner (repro_torch.nonideal; "
                          "e.g. stressed); needs a non-digital backend")

@@ -1,22 +1,28 @@
-"""Attention: GQA projections + blockwise-softmax attention in plain
-PyTorch (port of ``repro.models.attention`` for the kinds gemma3 uses).
+"""Attention: GQA projections (with qwen's optional q/k/v biases) +
+blockwise-softmax attention in plain PyTorch (port of
+``repro.models.attention`` for the decoder's self-attention kinds).
 
 Prefill uses a flat-head layout (B, S, Hq, D) with KV repeated to Hq
 heads; decode keeps the grouped (B, S, Hkv, D) cache.  Decode writes the
 new key/value into the cache IN PLACE (the reference's functional update
 donates the old cache; here the session owns the buffers).
 
-  global : causal, blockwise online softmax over KV blocks
-  local  : exact sliding window (2-chunk trick when S is a multiple of
-           the window, else the masked blockwise path)
+  global  : causal, blockwise online softmax over KV blocks
+  local   : exact sliding window (2-chunk trick when S is a multiple of
+            the window, else the masked blockwise path)
+  chunked : llama4's causal attention within the query's own chunk of
+            ``cfg.window`` positions (1-chunk trick when S is a multiple
+            of the chunk, else the masked blockwise path)
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.configs.base import ArchConfig, GLOBAL_ATTN, LOCAL_ATTN
-from repro_torch.models.common import (apply_norm, apply_rope, dense,
-                                       dense_schema, einsum, norm_schema)
+from repro_torch.configs.base import (ArchConfig, CHUNKED_ATTN, GLOBAL_ATTN,
+                                      LOCAL_ATTN)
+from repro_torch.models.common import (ParamSchema, apply_norm, apply_rope,
+                                       dense, dense_schema, einsum,
+                                       norm_schema)
 
 NEG_INF = -1e30
 
@@ -26,6 +32,10 @@ def attention_schema(cfg: ArchConfig):
     kvf = cfg.num_kv_heads * cfg.head_dim
     s = {"wq": dense_schema(d, qf), "wk": dense_schema(d, kvf),
          "wv": dense_schema(d, kvf), "wo": dense_schema(qf, d)}
+    if cfg.qkv_bias:
+        s["bq"] = ParamSchema((qf,), "zeros")
+        s["bk"] = ParamSchema((kvf,), "zeros")
+        s["bv"] = ParamSchema((kvf,), "zeros")
     if cfg.qk_norm:
         s["qnorm"] = norm_schema(cfg.head_dim, "rmsnorm")
         s["knorm"] = norm_schema(cfg.head_dim, "rmsnorm")
@@ -35,6 +45,8 @@ def attention_schema(cfg: ArchConfig):
 def _project_q(params, x, cfg: ArchConfig):
     B, S, _ = x.shape
     q = dense(x, params["wq"], "attn.q")
+    if "bq" in params:
+        q = q + params["bq"].to(x.dtype)
     q = q.reshape(B, S, cfg.num_heads, cfg.head_dim)
     if "qnorm" in params:
         q = apply_norm(params["qnorm"], q, "rmsnorm")
@@ -45,6 +57,9 @@ def _project_kv(params, x, cfg: ArchConfig):
     B, S, _ = x.shape
     k = dense(x, params["wk"], "attn.k")
     v = dense(x, params["wv"], "attn.v")
+    if "bk" in params:
+        k = k + params["bk"].to(x.dtype)
+        v = v + params["bv"].to(x.dtype)
     k = k.reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
     v = v.reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
     if "knorm" in params:
@@ -66,12 +81,12 @@ def _out_proj(params, o, cfg: ArchConfig):
     return dense(o, params["wo"], "attn.o")
 
 
-def flash_attention(q, k, v, *, block_kv: int = 1024,
-                    window: int = 0) -> torch.Tensor:
-    """Causal attention, optionally windowed.  q: (B,Sq,H,D); k,v:
-    (B,Sk,H,D) head-repeated.  Blockwise online softmax over KV blocks (a
-    Python loop in place of the reference's scan).  Returns (B,Sq,H,D) in
-    v's dtype."""
+def flash_attention(q, k, v, *, block_kv: int = 1024, window: int = 0,
+                    chunk: int = 0) -> torch.Tensor:
+    """Causal attention, optionally within a sliding ``window`` or within
+    the query's own ``chunk``.  q: (B,Sq,H,D); k,v: (B,Sk,H,D)
+    head-repeated.  Blockwise online softmax over KV blocks (a Python loop
+    in place of the reference's scan).  Returns (B,Sq,H,D) in v's dtype."""
     B, Sq, H, D = q.shape
     Sk = k.shape[1]
     bk = min(block_kv, Sk)
@@ -93,6 +108,8 @@ def flash_attention(q, k, v, *, block_kv: int = 1024,
         mask = k_pos[None, :] <= q_pos[:, None]
         if window:
             mask &= (q_pos[:, None] - k_pos[None, :]) < window
+        if chunk:
+            mask &= (q_pos[:, None] // chunk) == (k_pos[None, :] // chunk)
         s = torch.where(mask[None, None], s, NEG_INF)
         m_new = torch.maximum(m, s.amax(dim=-1))
         p = torch.exp(s - m_new[..., None])
@@ -105,9 +122,11 @@ def flash_attention(q, k, v, *, block_kv: int = 1024,
     return o.permute(0, 2, 1, 3).to(v.dtype)
 
 
-def _grouped_windowed(q, k, v, w: int):
-    """Sliding-window attention over (B,S,H,D) reshaped to window chunks:
-    each chunk's queries see their own chunk and the previous one."""
+def _grouped_windowed(q, k, v, w: int, *, sliding: bool):
+    """Attention over (B,S,H,D) reshaped to chunks of ``w`` positions.
+    ``sliding``: each chunk's queries see their own chunk and the previous
+    one, within ``w`` positions (local attention); else only their own
+    chunk, causally (llama4's chunked attention)."""
     B, S, H, D = q.shape
     n = S // w
 
@@ -115,17 +134,22 @@ def _grouped_windowed(q, k, v, w: int):
         return x.reshape(B, n, w, H, D).permute(0, 1, 3, 2, 4)
 
     q5, k5, v5 = to5(q), to5(k), to5(v)
-    kp = torch.cat([torch.zeros_like(k5[:, :1]), k5[:, :-1]], dim=1)
-    vp = torch.cat([torch.zeros_like(v5[:, :1]), v5[:, :-1]], dim=1)
-    k5 = torch.cat([kp, k5], dim=3)                   # (B,n,H,2w,D)
-    v5 = torch.cat([vp, v5], dim=3)
+    if sliding:
+        kp = torch.cat([torch.zeros_like(k5[:, :1]), k5[:, :-1]], dim=1)
+        vp = torch.cat([torch.zeros_like(v5[:, :1]), v5[:, :-1]], dim=1)
+        k5 = torch.cat([kp, k5], dim=3)               # (B,n,H,2w,D)
+        v5 = torch.cat([vp, v5], dim=3)
     wk = k5.shape[3]
     dev = q.device
     k_pos = torch.arange(wk, device=dev)[None, :]
-    q_pos = torch.arange(w, device=dev)[:, None] + w
-    valid = (k_pos <= q_pos) & (q_pos - k_pos < w)            # (w, 2w)
-    nz = torch.arange(n, device=dev) > 0                      # chunk 0: no prev
-    mask_n = valid[None] & (nz[:, None, None] | (k_pos >= w)[None])
+    if sliding:
+        q_pos = torch.arange(w, device=dev)[:, None] + w  # in the 2w frame
+        valid = (k_pos <= q_pos) & (q_pos - k_pos < w)        # (w, 2w)
+        nz = torch.arange(n, device=dev) > 0                  # chunk 0: no prev
+        mask_n = valid[None] & (nz[:, None, None] | (k_pos >= w)[None])
+    else:
+        q_pos = torch.arange(w, device=dev)[:, None]
+        mask_n = (k_pos <= q_pos)[None].expand(n, w, wk)
     s = einsum("bnhqd,bnhkd->bnhqk", q5 * (D ** -0.5), k5).float()
     s = torch.where(mask_n[None, :, None], s, NEG_INF)
     p = torch.softmax(s, dim=-1)
@@ -138,7 +162,16 @@ def local_attention(q, k, v, window: int):
     if window >= S or S % window != 0:
         return flash_attention(q, k, v, block_kv=min(1024, S),
                                window=window if window < S else 0)
-    return _grouped_windowed(q, k, v, window)
+    return _grouped_windowed(q, k, v, window, sliding=True)
+
+
+def chunked_attention(q, k, v, chunk: int):
+    """llama4-style: causal attention restricted to the query's own chunk."""
+    S = q.shape[1]
+    if chunk >= S or S % chunk != 0:
+        return flash_attention(q, k, v, block_kv=min(1024, S),
+                               chunk=chunk if chunk < S else 0)
+    return _grouped_windowed(q, k, v, chunk, sliding=False)
 
 
 def decode_attention(q, ck, cv, valid_mask, cfg: ArchConfig):
@@ -167,13 +200,13 @@ def attn_mixer(params, x, *, cfg: ArchConfig, pcfg, kind: str,
                positions=None, cache=None, pos=None, mode: str = "train"):
     """Returns (out (B,S,D), new_cache_or_None).  Cache layout:
       global : {"k","v"}: (B, S_max, Hkv, Dh), position p at slot p
-      local  : ring buffer (B, W, Hkv, Dh), slot = p mod W
+      local/chunked : ring buffer (B, W, Hkv, Dh), slot = p mod W
     ``pos`` (decode) is the position being written: an int, every row at
     it, or a (B,) tensor, each row at its own (continuous batching: each
     row writes its own slot and masks its own history)."""
-    if kind not in (GLOBAL_ATTN, LOCAL_ATTN):
+    if kind not in (GLOBAL_ATTN, LOCAL_ATTN, CHUNKED_ATTN):
         raise NotImplementedError(f"attention kind {kind!r} is not ported "
-                                  "yet (ROADMAP A9)")
+                                  "yet (ROADMAP A9c: the encoder)")
     B, S, _ = x.shape
     base = rope_base_for(cfg, kind)
     q = _project_q(params, x, cfg)
@@ -198,7 +231,12 @@ def attn_mixer(params, x, *, cfg: ArchConfig, pcfg, kind: str,
             valid = idx <= pos
         else:
             abs_pos = pos - ((slot - idx) % n_slots)  # position held in slot
-            valid = (abs_pos >= 0) & (abs_pos > pos - n_slots) & (abs_pos <= pos)
+            if kind == LOCAL_ATTN:
+                valid = ((abs_pos >= 0) & (abs_pos > pos - n_slots)
+                         & (abs_pos <= pos))
+            else:                                     # same chunk as pos
+                valid = ((abs_pos >= 0) & (abs_pos // n_slots == pos // n_slots)
+                         & (abs_pos <= pos))
         o = decode_attention(q, ck, cv, valid, cfg)
         return _out_proj(params, o, cfg), {"k": ck, "v": cv}
 
@@ -210,6 +248,8 @@ def attn_mixer(params, x, *, cfg: ArchConfig, pcfg, kind: str,
     kf, vf = _repeat_kv(k, cfg), _repeat_kv(v, cfg)
     if kind == LOCAL_ATTN:
         o = local_attention(q, kf, vf, cfg.window)
+    elif kind == CHUNKED_ATTN:
+        o = chunked_attention(q, kf, vf, cfg.window)
     else:
         o = flash_attention(q, kf, vf, block_kv=min(pcfg.attn_block_kv, S))
     new_cache = None

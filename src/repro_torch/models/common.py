@@ -1,5 +1,6 @@
-"""Shared model infrastructure: parameter schemas, the dense hook, norms,
-activations, RoPE (the port of ``repro.models.common``).
+"""Shared model infrastructure: parameter schemas, the dense hook, norms
+(rmsnorm, layernorm), activations, RoPE (the port of
+``repro.models.common``).
 
 A module is (schema function, plain apply function over a dict of
 tensors).  ``init_params`` materializes a schema with one
@@ -194,14 +195,27 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.Tensor
     return (y * w.float()).to(dt)
 
 
+def layernorm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+              eps: float = 1e-5) -> torch.Tensor:
+    """Statistics in float32 (mean, then the mean square of ``x - mu``),
+    scale and shift in float32, the result in x's dtype."""
+    dt = x.dtype
+    xf = x.float()
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(xf - mu), dim=-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y * w.float() + b.float()).to(dt)
+
+
 def norm_schema(d: int, kind: str):
-    if kind != "rmsnorm":
-        raise NotImplementedError(f"norm {kind!r}: only rmsnorm is ported "
-                                  "(other families: ROADMAP A9)")
+    if kind == "layernorm":
+        return {"w": ParamSchema((d,), "ones"), "b": ParamSchema((d,), "zeros")}
     return {"w": ParamSchema((d,), "ones")}
 
 
 def apply_norm(params, x, kind: str):
+    if kind == "layernorm":
+        return layernorm(x, params["w"], params["b"])
     return rmsnorm(x, params["w"])
 
 

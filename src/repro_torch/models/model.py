@@ -41,7 +41,7 @@ def model_schema(cfg: ArchConfig) -> Dict[str, Any]:
     if cfg.frontend != "none" or cfg.encoder_layers or cfg.logit_softcap:
         raise NotImplementedError(f"{cfg.name}: frontends, encoders and "
                                   "logit softcaps are not ported yet "
-                                  "(ROADMAP A9)")
+                                  "(ROADMAP A9c)")
     s: Dict[str, Any] = {
         "embed": ParamSchema((vp, d), "embed", d ** -0.5),
         "final_norm": norm_schema(d, cfg.norm),
@@ -160,7 +160,9 @@ def _run_stack(stack_params, x, *, cfg: ArchConfig, pcfg, pattern,
                tail_kinds, mode, caches, pos, positions,
                scan_group: str = "dec"):
     """Stacked periods (a Python loop) + unrolled tail.  Returns
-    (x, new_caches).  Decode updates the stacked caches in place (what a
+    (x, aux, new_caches): ``aux`` sums the layers' auxiliary losses in
+    the reference's order (a float32 scalar with an MoE FFN, else the
+    number 0.0).  Decode updates the stacked caches in place (what a
     period's layer returns is written back into its slice); its returned
     tree holds the same tensors.  A site-keying provider installed with
     ``use_scan_states`` sees each period announced, so analog call sites
@@ -175,21 +177,22 @@ def _run_stack(stack_params, x, *, cfg: ArchConfig, pcfg, pattern,
     new_caches: Dict[str, Any] = {"scan": {}, "tail": {}}
     scan_params = stack_params["scan"]
 
-    def period_fn(x, lp, lcs, p, positions):
+    def period_fn(x, aux, lp, lcs, p, positions):
         ncs = {}
         scope = (provider.scan_period(scan_group, p)
                  if provider is not None else contextlib.nullcontext())
         with scope:
             for i, kind in enumerate(pattern):
                 lc = None if lcs is None else lcs[i]
-                x, nc = apply_layer(lp[f"p{i}"], x, cfg=cfg, pcfg=pcfg,
-                                    kind=kind, mode=mode, cache=lc,
-                                    pos=pos, positions=positions)
+                x, nc, a = apply_layer(lp[f"p{i}"], x, cfg=cfg, pcfg=pcfg,
+                                       kind=kind, mode=mode, cache=lc,
+                                       pos=pos, positions=positions)
+                aux = aux + a
                 if nc is not None:
                     ncs[f"p{i}"] = nc
                     if mode == "decode":
                         _write_back(lc, nc)
-        return x, ncs
+        return x, aux, ncs
 
     period = period_fn
     if mode == "train" and torch.is_grad_enabled():
@@ -201,6 +204,7 @@ def _run_stack(stack_params, x, *, cfg: ArchConfig, pcfg, pattern,
     # before the period enters the checkpointed region
     warm = (period is not period_fn and pcfg.remat == "dots"
             and current_dense_hook() is not None)
+    aux = 0.0
     if scan_params:
         n = next(iter(scan_params.values()))["norm1"]["w"].shape[0]
         per = []
@@ -211,8 +215,8 @@ def _run_stack(stack_params, x, *, cfg: ArchConfig, pcfg, pattern,
             lp = _select(scan_params, p)
             if warm:
                 with torch.no_grad():
-                    period_fn(x[:1, :1], lp, None, p, positions[:, :1])
-            x, ncs = period(x, lp, lcs, p, positions)
+                    period_fn(x[:1, :1], 0.0, lp, None, p, positions[:, :1])
+            x, aux, ncs = period(x, aux, lp, lcs, p, positions)
             per.append(ncs)
         if mode == "prefill":
             new_caches["scan"] = _stack(per)
@@ -220,12 +224,13 @@ def _run_stack(stack_params, x, *, cfg: ArchConfig, pcfg, pattern,
             new_caches["scan"] = caches["scan"]
     for i, kind in enumerate(tail_kinds):
         lc = caches["tail"].get(f"t{i}") if mode == "decode" else None
-        x, nc = apply_layer(stack_params["tail"][f"t{i}"], x, cfg=cfg,
-                            pcfg=pcfg, kind=kind, mode=mode, cache=lc,
-                            pos=pos, positions=positions)
+        x, nc, a = apply_layer(stack_params["tail"][f"t{i}"], x, cfg=cfg,
+                               pcfg=pcfg, kind=kind, mode=mode, cache=lc,
+                               pos=pos, positions=positions)
+        aux = aux + a
         if nc is not None:
             new_caches["tail"][f"t{i}"] = nc
-    return x, new_caches
+    return x, aux, new_caches
 
 
 def embed_tokens(params, tokens, cfg: ArchConfig, compute_dtype):
@@ -239,16 +244,19 @@ def embed_tokens(params, tokens, cfg: ArchConfig, compute_dtype):
 
 def forward(params, tokens, *, cfg: ArchConfig, pcfg, mode: str = "train",
             cache=None, pos=None, compute_dtype=torch.bfloat16):
-    """Returns (hidden (B,S,D), new_cache_or_None)."""
+    """Returns (hidden (B,S,D), new_cache_or_None, aux loss): the aux
+    loss is a float32 scalar, 0 for an arch without an MoE FFN."""
     x = embed_tokens(params, tokens, cfg, compute_dtype)
     positions = (None if mode == "decode" else
                  torch.arange(tokens.shape[1], device=tokens.device)[None, :])
-    x, new_caches = _run_stack(
+    x, aux, new_caches = _run_stack(
         params["decoder"], x, cfg=cfg, pcfg=pcfg, pattern=cfg.pattern,
         tail_kinds=cfg.tail_kinds, mode=mode, caches=cache, pos=pos,
         positions=positions)
     x = apply_norm(params["final_norm"], x, cfg.norm)
-    return x, (new_caches if mode in ("prefill", "decode") else None)
+    if not isinstance(aux, torch.Tensor):
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return x, (new_caches if mode in ("prefill", "decode") else None), aux
 
 
 def compute_logits(params, h, cfg: ArchConfig):
@@ -299,21 +307,20 @@ def chunked_xent(params, h, targets, mask, *, cfg: ArchConfig,
 
 def lm_loss(params, batch, *, cfg: ArchConfig, pcfg,
             compute_dtype=torch.bfloat16, z_coef: float = 1e-4):
-    """batch: {tokens, targets, mask}.  Returns (loss, {"xent", "aux"});
-    the port's families have no auxiliary loss (aux is 0)."""
-    h, _ = forward(params, batch["tokens"], cfg=cfg, pcfg=pcfg, mode="train",
-                   compute_dtype=compute_dtype)
+    """batch: {tokens, targets, mask}.  Returns (xent + aux, {"xent",
+    "aux"}); aux is the MoE FFNs' load-balancing loss (0 without one)."""
+    h, _, aux = forward(params, batch["tokens"], cfg=cfg, pcfg=pcfg,
+                        mode="train", compute_dtype=compute_dtype)
     loss = chunked_xent(params, h, batch["targets"], batch["mask"], cfg=cfg,
                         chunk=pcfg.xent_chunk, z_coef=z_coef)
-    aux = torch.zeros((), dtype=torch.float32, device=h.device)
     return loss + aux, {"xent": loss, "aux": aux}
 
 
 def prefill(params, tokens, *, cfg: ArchConfig, pcfg,
             compute_dtype=torch.bfloat16):
     """Returns (last-position logits (B,Vp), cache)."""
-    h, cache = forward(params, tokens, cfg=cfg, pcfg=pcfg, mode="prefill",
-                       compute_dtype=compute_dtype)
+    h, cache, _ = forward(params, tokens, cfg=cfg, pcfg=pcfg,
+                          mode="prefill", compute_dtype=compute_dtype)
     return compute_logits(params, h[:, -1:], cfg)[:, 0], cache
 
 
@@ -322,6 +329,7 @@ def decode_step(params, token, cache, pos, *, cfg: ArchConfig, pcfg,
     """token: (B,1) int64; pos: the position being written, an int (every
     row) or a (B,) tensor (each row its own).  Returns (logits (B,Vp),
     cache) -- the cache is updated in place."""
-    h, new_cache = forward(params, token, cfg=cfg, pcfg=pcfg, mode="decode",
-                           cache=cache, pos=pos, compute_dtype=compute_dtype)
+    h, new_cache, _ = forward(params, token, cfg=cfg, pcfg=pcfg,
+                              mode="decode", cache=cache, pos=pos,
+                              compute_dtype=compute_dtype)
     return compute_logits(params, h, cfg)[:, 0], new_cache

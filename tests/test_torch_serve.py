@@ -100,6 +100,9 @@ print('MISSING', [m for m in NEW if m not in sys.modules])
             "repro_torch.core.deployment", "repro_torch.launch.quickstart",
             "repro_torch.kernels.emulator_block.ops",
             "repro_torch.kernels._build", "repro_torch.models.ssm",
+            "repro_torch.models.moe", "repro_torch.configs.qwen15_110b",
+            "repro_torch.configs.command_r_plus_104b",
+            "repro_torch.configs.phi35_moe", "repro_torch.configs.llama4_scout",
             "repro_torch.launch.batching", "repro_torch.launch.train",
             "repro_torch.runtime.trainer", "repro_torch.optim.adamw",
             "repro_torch.checkpoint.manager", "repro_torch.data.pipeline",

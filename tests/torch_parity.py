@@ -81,9 +81,10 @@ def _ref_splice(z, c):
     return z
 
 
-def executors(backend):
+def executors(backend, layers=("mlp",)):
     """(reference, port) analog executors with the same emulator params on
-    the MLP projections; (None, None) for the digital backend."""
+    the projections of ``layers`` (tag prefixes; default the MLP's);
+    (None, None) for the digital backend."""
     if backend == "digital":
         return None, None
     from repro.configs.base import AnalogConfig as RefAnalogConfig
@@ -94,10 +95,10 @@ def executors(backend):
     from repro_torch.core.analog import AnalogExecutor
     jp, tp = both_emulator_params(REF_A, 0, seed=3)
     ref = RefExecutor(acfg=RefAnalogConfig(enabled=True, backend="emulator",
-                                           layers=("mlp",)),
+                                           layers=tuple(layers)),
                       geom=REF_A, emulator_params=jp, use_pallas=False)
     ex = AnalogExecutor(AnalogConfig(enabled=True, backend="emulator",
-                                     layers=("mlp",)),
+                                     layers=tuple(layers)),
                         geom=CASE_A, emulator_params=tp)
     return ref, ex
 
@@ -110,12 +111,16 @@ def same_config(tcfg, rcfg) -> bool:
     return all(t[f] == r[f] for f in t if f != "analog")
 
 
-def model_parity_f32(arch, layers, P, backend, B=2, G=3):
+def model_parity_f32(arch, layers, P, backend, B=2, G=3,
+                     analog_layers=("mlp",), params_fn=None):
     """Reduced ``arch`` at ``layers`` in float32 (params and compute):
     prefill logits and G greedy decode steps of the port against
     ``repro.models.model.prefill/decode_step`` on converted params --
     tokens equal, logits within rtol 1e-4 (atol 1e-4 of the logits'
-    scale)."""
+    scale).  ``analog_layers`` are the emulator backend's projections;
+    ``params_fn`` (numpy tree -> numpy tree) edits the reference's params
+    before both packages take them.  Returns the (reference, port)
+    executors (None, None digitally)."""
     import jax
     import jax.numpy as jnp
     import torch
@@ -135,12 +140,14 @@ def model_parity_f32(arch, layers, P, backend, B=2, G=3):
     tcfg = reduced(get_config(arch), layers=layers)
     assert same_config(tcfg, rcfg)
     rp = ref_init_params(jax.random.PRNGKey(0), RM.model_schema(rcfg))
+    if params_fn is not None:
+        rp = jax.tree.map(jnp.asarray, params_fn(tree_np(rp)))
     tp = params_from_numpy(tree_np(rp), device="cpu")
     rpc = RefPcfg(compute_dtype="float32", attn_block_kv=min(1024, P),
                   scan_chunk=min(256, P))
     tpc = ParallelConfig(compute_dtype="float32", attn_block_kv=min(1024, P))
     tokens = np.random.default_rng(1).integers(0, rcfg.vocab_size, (B, P))
-    rex, tex = executors(backend)
+    rex, tex = executors(backend, analog_layers)
     rctx = ref_hook(rex.hook) if rex else ref_hook(None)
     tctx = use_dense_hook(tex.hook) if tex else use_dense_hook(None)
 
@@ -181,6 +188,66 @@ def model_parity_f32(arch, layers, P, backend, B=2, G=3):
                                    atol=1e-4 * float(np.abs(w).max()),
                                    err_msg=f"step {step}")
     np.testing.assert_array_equal(np.stack(t_toks), np.stack(r_toks))
+    return rex, tex
+
+
+def site_keys_match(arch, layers, rex, tex):
+    """The reference's and the port's ``ServeSession`` over reduced
+    ``arch`` at ``layers``, on executors ``rex`` / ``tex``, discover the
+    same analog call sites (the port's on the reference's params)."""
+    from repro.launch.serve import ServeSession as RefSession
+    from repro_torch.interop import params_from_numpy
+    from repro_torch.launch.serve import ServeSession
+    rs = RefSession(arch, reduced=True, reduced_layers=layers, batch=1,
+                    prompt_len=4, gen=2, executor=rex)
+    ts = ServeSession(arch, reduced=True, reduced_layers=layers, batch=1,
+                      prompt_len=4, gen=2, executor=tex, device="cpu",
+                      params=params_from_numpy(tree_np(rs.params),
+                                               device="cpu"))
+    assert sorted(ts.sites()) == sorted(rs.sites())
+    return sorted(ts.sites())
+
+
+def decode_matches_forward(arch, layers, B=2, P=16, G=3, seed=5,
+                           edit_cfg=None):
+    """Port only: reduced ``arch`` at ``layers`` (``edit_cfg`` may change
+    the config), float32; prefill P tokens, then decode G more (teacher
+    forcing), against one forward over all P + G: logits within rtol
+    1e-4, atol 1e-4 of their scale."""
+    import torch
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.configs.base import ParallelConfig
+    from repro_torch.launch.serve import _splice_tree
+    from repro_torch.models import model as TM
+    from repro_torch.models.common import init_params
+    cfg = reduced(get_config(arch), layers=layers)
+    if edit_cfg is not None:
+        cfg = edit_cfg(cfg)
+    pcfg = ParallelConfig(compute_dtype="float32")
+    params = init_params(0, TM.model_schema(cfg), device="cpu")
+    toks = torch.from_numpy(np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (B, P + G)))
+    f32 = torch.float32
+    with torch.no_grad():
+        h, _, _ = TM.forward(params, toks, cfg=cfg, pcfg=pcfg, mode="prefill",
+                             compute_dtype=f32)
+        want = TM.compute_logits(params, h[:, P - 1:], cfg).numpy()
+        logits, pcache = TM.prefill(params, toks[:, :P], cfg=cfg, pcfg=pcfg,
+                                    compute_dtype=f32)
+        cache = TM.zeros_cache(TM.model_cache_schema(cfg, B, P + G, dtype=f32),
+                               "cpu")
+        cache = _splice_tree(cache, pcache)
+        got = [logits.numpy()]
+        for i in range(G):
+            logits, cache = TM.decode_step(params, toks[:, P + i:P + i + 1],
+                                           cache, P + i, cfg=cfg, pcfg=pcfg,
+                                           compute_dtype=f32)
+            got.append(logits.numpy())
+    scale = float(np.abs(want).max())
+    for i, g in enumerate(got):
+        np.testing.assert_allclose(g, want[:, i], rtol=1e-4, atol=1e-4 * scale,
+                                   err_msg=f"{arch} step {i}")
+    return cfg
 
 
 # bf16 end to end: both packages round activations to bf16 after every op,
