@@ -202,7 +202,25 @@ JAX or of the JAX package.  Phases (any failure exits non-zero):
      steps against one forward (an MoE arch at a capacity that holds
      every assignment), rtol 1e-3, atol 1e-3 of the logits' scale; a
      JSON ``decoders`` line
- 14. a JSON ``kernels`` line, then the card line, then the result line.
+ 14. the frontend archs through the serve CLI at full width on the
+     phase-3 net (``FRONT_SERVES``): internvl2-76b cut to 1 layer, batch
+     1, prompt 272 (256 image positions, then 16 text tokens), 8 tokens,
+     its vision projection and attention analog; seamless-m4t-large-v2 at
+     its published depth (24 encoder + 24 decoder layers), batch 2, 32
+     frames and a 32-token prompt, 8 tokens, its MLPs and attention (the
+     encoder's and the cross attention's too) analog.  Per serve: the
+     served widths against the published ones; B1's launches against the
+     count the sites imply (the vision projection, the encoder's sites
+     and the cross k / v launch at prefill alone, every other site once a
+     forward); every decode call (M = batch) held against the plain
+     version (in column chunks) at rtol 1e-4 / atol 1e-5; the first call
+     at each (M, site shape) timed beside its bound; prefill ms, decode ms
+     a step, B1's share of each, the executor's plan and cache bytes,
+     peak memory; then, digitally in fp32, prefill + 3 decode steps
+     against one forward, the same image embeddings or frames given to
+     both, rtol 1e-3, atol 1e-3 of the logits' scale; a JSON
+     ``frontends`` line
+ 15. a JSON ``kernels`` line, then the card line, then the result line.
      The B2, B3 and B6 rows' ``ms`` is the kernel alone (B2, B3 on weights
      packed once); their ``call_ms`` is the whole call a user makes, which
      also packs the weights on the host (B2, B3) or folds h0 (B6).  Every
@@ -220,7 +238,10 @@ JAX or of the JAX package.  Phases (any failure exits non-zero):
      ``training_path``: B1's first training call;
      ``training_backward``: B6's backward call), and phase 13's
      (``decoder_launches`` per arch, also counted in ``launches``;
-     ``decoder_path``: B1's prefill and decode calls at each site shape).
+     ``decoder_path``: B1's prefill and decode calls at each site shape),
+     and phase 14's (``frontend_launches`` per arch, also counted in
+     ``launches``; ``frontend_path``: B1's first call at each (M, site
+     shape), with its count and the largest error of its decode calls).
 """
 from __future__ import annotations
 
@@ -1055,7 +1076,11 @@ def main() -> None:
     dec = decoder_phase(dev, card, npz)
     torch.cuda.empty_cache()
 
-    # ---- phase 14: the kernels line --------------------------------------
+    # ---- phase 14: the frontend archs at full width ---------------------
+    front = frontend_phase(dev, card, npz)
+    torch.cuda.empty_cache()
+
+    # ---- phase 15: the kernels line --------------------------------------
     ebk = "emulator_block/emulator_block.py:"
     b1_head = next(r for r in b1_shapes if r["shape"].startswith("mlp.up")
                    and r["shape"].endswith(" M=4"))
@@ -1066,15 +1091,18 @@ def main() -> None:
         entry("emulator_block_unified", src + "emulator_block_unified.cu",
               ebk + "295",
               b1_launches + serv["b1"] + sum(life["b1"].values())
-              + train["b1"]["training"] + sum(dec["b1"].values()),
+              + train["b1"]["training"] + sum(dec["b1"].values())
+              + sum(front["b1"].values()),
               max(max_abs["B1"], ni["b1_err"], rec["b1_err"], serv["b1_err"],
-                  life["b1_err"], train["b1_err"], dec["b1_err"]),
+                  life["b1_err"], train["b1_err"], dec["b1_err"],
+                  front["b1_err"]),
               b1_head, b1_shapes, nonideal_launches=ni["b1"],
               model_launches=rec["b1"], model_path=rec["b1_rows"],
               engine_launches=serv["b1"], engine_path=serv["b1_rows"],
               lifetime_launches=life["b1"], lifetime_path=life["b1_rows"],
               training_launches=train["b1"], training_path=train["b1_rows"],
-              decoder_launches=dec["b1"], decoder_path=dec["b1_rows"]),
+              decoder_launches=dec["b1"], decoder_path=dec["b1_rows"],
+              frontend_launches=front["b1"], frontend_path=front["b1_rows"]),
         entry("emulator_block_unified (bf16 mode)",
               src + "emulator_block_unified.cu", ebk + "295", b1_bf16_launches,
               max_abs["B1 bf16"], b1_bf16_head, b1_bf16_shapes),
@@ -1103,6 +1131,7 @@ def main() -> None:
     print(json.dumps({"lifetime": life["rows"]}), flush=True)
     print(json.dumps({"training": train["row"]}), flush=True)
     print(json.dumps({"decoders": dec["rows"]}), flush=True)
+    print(json.dumps({"frontends": front["rows"]}), flush=True)
     print(f"[done] {time.perf_counter() - t_start:.1f} s", flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
@@ -1566,6 +1595,61 @@ REC_B, REC_G, REC_DECODE = 4, 8, 3
 REC_RTOL, REC_ATOL = 1e-3, 1e-3
 
 
+def _decode_vs_forward(dev, cfg, B, P, seed, label, note="", inputs=None):
+    """Digitally in fp32 (TF32 off): prefill ``P`` tokens + ``REC_DECODE``
+    decode steps against one forward over the same tokens (drawn from
+    ``seed``) on fresh weights, within ``REC_RTOL`` and ``REC_ATOL`` of
+    the logits' scale.  ``inputs``: a frontend arch's ``image_embeds`` or
+    ``enc_frames``, given to both (the frames' length is the cross
+    caches').  Prints the errors, fails on a disagreement; returns (the
+    largest error, the logits' scale)."""
+    import torch
+    from repro_torch.configs.base import ParallelConfig
+    from repro_torch.launch import serve
+    from repro_torch.models import model as M
+    from repro_torch.runtime import steps as S
+    f32 = torch.float32
+    inputs = inputs or {}
+    cross = inputs["enc_frames"].shape[1] if "enc_frames" in inputs else 0
+    params = S.init_model_params(1, cfg, dev)
+    pcfg = ParallelConfig(compute_dtype="float32", attn_block_kv=min(1024, P))
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    T = REC_DECODE
+    toks = torch.randint(0, cfg.vocab_size, (B, P + T), generator=g,
+                         device=dev)
+    with torch.no_grad():
+        hs, _, _ = M.forward(params, toks, cfg=cfg, pcfg=pcfg, mode="prefill",
+                             compute_dtype=f32, **inputs)
+        want = M.compute_logits(params, hs[:, P - 1:], cfg)[..., :cfg.vocab_size]
+        del hs
+        logits, pc = M.prefill(params, toks[:, :P], cfg=cfg, pcfg=pcfg,
+                               compute_dtype=f32, **inputs)
+        cache = serve._splice_tree(M.zeros_cache(M.model_cache_schema(
+            cfg, B, P + T, cross_len=cross, dtype=f32), dev), pc)
+        del pc
+        steps = [logits]
+        for i in range(T):
+            logits, cache = M.decode_step(params, toks[:, P + i:P + i + 1],
+                                          cache, P + i, cfg=cfg, pcfg=pcfg,
+                                          compute_dtype=f32)
+            steps.append(logits)
+    scale = float(want.abs().max())
+    errs = []
+    for i, got in enumerate(steps):
+        d = (got[:, :cfg.vocab_size] - want[:, i]).abs()
+        errs.append(float(d.max()))
+        if not bool((d <= REC_ATOL * scale + REC_RTOL * want[:, i].abs()).all()):
+            fail(f"{label}: step {i} of prefill + decode disagrees with the "
+                 f"full forward (max abs {errs[-1]:.3e}, logits' scale "
+                 f"{scale:.3e})")
+    print(f"{label} prefill({P}) + {T} decode steps vs one forward over "
+          f"{P + T} tokens (fp32, TF32 off{note}): max abs per step "
+          f"{', '.join(f'{e:.2e}' for e in errs)}; logits' scale {scale:.3e} "
+          f"(gate rtol {REC_RTOL}, atol {REC_ATOL} of scale) ok", flush=True)
+    return max(errs), scale
+
+
 def recurrent_phase(dev, card, npz):
     """Phase 9: recurrentgemma-2b (RG-LRU) and falcon-mamba-7b (Mamba-1)
     served at full width through the serve CLI, B6 (the linear scan) on
@@ -1584,12 +1668,10 @@ def recurrent_phase(dev, card, npz):
     ``kernels`` line."""
     import torch
     from repro_torch.configs import get_config
-    from repro_torch.configs.base import MAMBA, RECURRENT, ParallelConfig
+    from repro_torch.configs.base import MAMBA, RECURRENT
     from repro_torch.kernels.emulator_block import emulator_block as eb
     from repro_torch.kernels.linear_scan import ops as scan_ops
     from repro_torch.launch import serve
-    from repro_torch.models import model as M
-    from repro_torch.runtime import steps as S
     lsm = importlib.import_module("repro_torch.kernels.linear_scan.linear_scan")
     eb_ops = importlib.import_module("repro_torch.kernels.emulator_block.ops")
     out = {"b1": {}, "b1_err": 0.0, "b1_rows": [], "b6": {}, "b6_err": 0.0,
@@ -1756,53 +1838,9 @@ def recurrent_phase(dev, card, npz):
         del sess, res, warm, traced
         torch.cuda.empty_cache()
 
-        # prefill + decode == one forward, digital, fp32 (TF32 is off)
-        f32 = torch.float32
-        params = S.init_model_params(1, cfg, dev)
-        pcfg = ParallelConfig(compute_dtype="float32",
-                              attn_block_kv=min(1024, P))
-        g = torch.Generator(device=dev)
-        g.manual_seed(900)
-        T = REC_DECODE
-        toks = torch.randint(0, cfg.vocab_size, (B, P + T), generator=g,
-                             device=dev)
-        with torch.no_grad():
-            hs, _, _ = M.forward(params, toks, cfg=cfg, pcfg=pcfg, mode="prefill",
-                              compute_dtype=f32)
-            full_logits = M.compute_logits(params, hs[:, P - 1:], cfg)
-            del hs
-            logits, pc = M.prefill(params, toks[:, :P], cfg=cfg, pcfg=pcfg,
-                                   compute_dtype=f32)
-            cache = serve._splice_tree(M.zeros_cache(M.model_cache_schema(
-                cfg, B, P + T, dtype=f32), dev), pc)
-            del pc
-            steps = [logits]
-            for i in range(T):
-                logits, cache = M.decode_step(params, toks[:, P + i:P + i + 1],
-                                              cache, P + i, cfg=cfg, pcfg=pcfg,
-                                              compute_dtype=f32)
-                steps.append(logits)
-        V = cfg.vocab_size
-        want_l = full_logits[..., :V]
-        scale = float(want_l.abs().max())
-        errs = []
-        for i, got in enumerate(steps):
-            d = (got[:, :V] - want_l[:, i]).abs()
-            errs.append(float(d.max()))
-            if not bool((d <= REC_ATOL * scale
-                         + REC_RTOL * want_l[:, i].abs()).all()):
-                fail(f"{arch}: step {i} of prefill + decode disagrees with "
-                     f"the full forward (max abs {errs[-1]:.3e}, logits' "
-                     f"scale {scale:.3e})")
-        print(f"[recurrent] {arch} prefill({P}) + {T} decode steps vs one "
-              f"forward over {P + T} tokens (fp32, TF32 off): max abs per step "
-              f"{', '.join(f'{e:.2e}' for e in errs)}; logits' scale "
-              f"{scale:.3e} (gate rtol {REC_RTOL}, atol {REC_ATOL} of scale) ok",
-              flush=True)
-        row["consistency_max_abs"] = max(errs)
-        row["logits_scale"] = scale
+        row["consistency_max_abs"], row["logits_scale"] = _decode_vs_forward(
+            dev, cfg, B, P, 900, f"[recurrent] {arch}")
         out["rows"].append(row)
-        del params, toks, full_logits, want_l, steps, cache, logits
         torch.cuda.empty_cache()
     print(f"[recurrent] phase took {time.perf_counter() - t_phase:.1f} s",
           flush=True)
@@ -3617,12 +3655,9 @@ def decoder_phase(dev, card, npz):
     arch, its largest error, its rows and one row per serve."""
     import torch
     from repro_torch.configs import get_config
-    from repro_torch.configs.base import ParallelConfig
     from repro_torch.kernels.emulator_block import emulator_block as eb
     from repro_torch.launch import serve
-    from repro_torch.models import model as M
     from repro_torch.models import moe as moe_mod
-    from repro_torch.runtime import steps as S
     eb_ops = importlib.import_module("repro_torch.kernels.emulator_block.ops")
     out = {"b1": {}, "b1_err": 0.0, "b1_rows": [], "rows": []}
     t_phase = time.perf_counter()
@@ -3757,59 +3792,230 @@ def decoder_phase(dev, card, npz):
         del sess, res, routed
         torch.cuda.empty_cache()
 
-        # prefill + decode == one forward, digital, fp32 (TF32 is off)
-        f32 = torch.float32
-        ccfg = cfg if cfg.moe is None else _holding_every_assignment(cfg)
-        params = S.init_model_params(1, ccfg, dev)
-        pcfg = ParallelConfig(compute_dtype="float32",
-                              attn_block_kv=min(1024, P))
-        g = torch.Generator(device=dev)
-        g.manual_seed(901)
-        T = REC_DECODE
-        toks = torch.randint(0, ccfg.vocab_size, (B, P + T), generator=g,
-                             device=dev)
-        with torch.no_grad():
-            hs, _, _ = M.forward(params, toks, cfg=ccfg, pcfg=pcfg,
-                                 mode="prefill", compute_dtype=f32)
-            full_logits = M.compute_logits(params, hs[:, P - 1:], ccfg)
-            del hs
-            logits, pc = M.prefill(params, toks[:, :P], cfg=ccfg, pcfg=pcfg,
-                                   compute_dtype=f32)
-            cache = serve._splice_tree(M.zeros_cache(M.model_cache_schema(
-                ccfg, B, P + T, dtype=f32), dev), pc)
-            del pc
-            steps = [logits]
-            for i in range(T):
-                logits, cache = M.decode_step(params, toks[:, P + i:P + i + 1],
-                                              cache, P + i, cfg=ccfg,
-                                              pcfg=pcfg, compute_dtype=f32)
-                steps.append(logits)
-        V = ccfg.vocab_size
-        want_l = full_logits[..., :V]
-        scale = float(want_l.abs().max())
-        errs = []
-        for i, got in enumerate(steps):
-            d = (got[:, :V] - want_l[:, i]).abs()
-            errs.append(float(d.max()))
-            if not bool((d <= REC_ATOL * scale
-                         + REC_RTOL * want_l[:, i].abs()).all()):
-                fail(f"{arch}: step {i} of prefill + decode disagrees with "
-                     f"the full forward (max abs {errs[-1]:.3e}, logits' "
-                     f"scale {scale:.3e})")
-        print(f"[decoders] {arch} prefill({P}) + {T} decode steps vs one "
-              f"forward over {P + T} tokens (fp32, TF32 off"
-              + ("" if cfg.moe is None else ", capacity of every assignment")
-              + f"): max abs per step {', '.join(f'{e:.2e}' for e in errs)}; "
-              f"logits' scale {scale:.3e} (gate rtol {REC_RTOL}, atol "
-              f"{REC_ATOL} of scale) ok", flush=True)
-        row["consistency_max_abs"] = max(errs)
-        row["logits_scale"] = scale
+        moe = cfg.moe is not None
+        row["consistency_max_abs"], row["logits_scale"] = _decode_vs_forward(
+            dev, _holding_every_assignment(cfg) if moe else cfg, B, P, 901,
+            f"[decoders] {arch}",
+            ", capacity of every assignment" if moe else "")
         row["serve_s"] = time.perf_counter() - t_serve
         out["rows"].append(row)
-        del params, toks, full_logits, want_l, steps, cache, logits
         torch.cuda.empty_cache()
         print(f"[decoders] {arch} took {row['serve_s']:.1f} s", flush=True)
     print(f"[decoders] phase 13 took {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return out
+
+
+# phase 14's serves, random weights at full published widths on the
+# phase-3 net (B1): (arch, decoder layers or None for the published depth,
+# batch, prompt, tokens, analog layers).  internvl2-76b's 256 image
+# positions and 16 text tokens make its prompt; its MLPs are qwen's class,
+# which phase 13 measures, so its analog sites are the vision projection
+# and the attention.  seamless-m4t-large-v2 runs whole (24 encoder + 24
+# decoder layers), one frame a prompt position.
+FRONT_SERVES = (("internvl2-76b", 1, 1, 272, 8, "frontend.proj,attn"),
+                ("seamless-m4t-large-v2", None, 2, 32, 8, "mlp,attn"))
+
+
+def _prefill_only(cfg, site_key):
+    """A site that launches B1 at prefill alone: the vision projection,
+    the encoder's, and the cross attention's k / v projections of the
+    encoder's output (decode reads them from the cross cache).  Every
+    other site launches once a forward."""
+    tag = site_key.split(":")[-1]
+    return (site_key.startswith(("frontend.", "enc."))
+            or (cfg.encoder_layers > 0 and tag in ("attn.k#1", "attn.v#1")))
+
+
+def frontend_phase(dev, card, npz):
+    """Phase 14: the frontend archs (internvl2-76b's vision stub,
+    seamless-m4t-large-v2's encoder and cross attention) served at full
+    width through the serve CLI on the phase-3 net (``FRONT_SERVES``).
+    B1's launch count is set to 0 just before each serve and read just
+    after, and must equal what the sites imply (``_prefill_only``: once,
+    else once a forward).  A recording wrapper around the B1 wrapper the
+    dispatcher calls counts the calls at each (M, site shape) and keeps
+    every decode call (M = batch; inputs and output copied): each is held
+    against the plain version at the fp32 gate after the serve (in
+    column chunks, ``_plain_by_columns``); the first call at each (M,
+    shape) is timed beside its bound.  Then, digitally in fp32, prefill +
+    ``REC_DECODE`` decode steps against one forward over the same tokens,
+    the same image embeddings or frames given to both.  Returns B1's
+    launches per arch, its largest error, its rows and one row per
+    serve."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.emulator_block import emulator_block as eb
+    from repro_torch.launch import serve
+    eb_ops = importlib.import_module("repro_torch.kernels.emulator_block.ops")
+    out = {"b1": {}, "b1_err": 0.0, "b1_rows": [], "rows": []}
+    t_phase = time.perf_counter()
+    for arch, layers, B, P, G, analog in FRONT_SERVES:
+        t_serve = time.perf_counter()
+        argv = (["--arch", arch, "--batch", str(B), "--prompt-len", str(P),
+                 "--gen", str(G), "--seed", "0", "--analog-backend",
+                 "emulator", "--emulator-params", str(npz), "--analog-layers",
+                 analog] + (["--layers", str(layers)] if layers else []))
+        real_b1 = eb_ops.emulator_block_unified_cuda
+        counts, first, decode_calls = {}, {}, []
+
+        def recording_b1(aux, g_norm, u01, pos01, **kw):
+            y = real_b1(aux, g_norm, u01, pos01, **kw)
+            key = (u01.shape[0], tuple(g_norm.shape[:2]))
+            counts[key] = counts.get(key, 0) + 1
+            first.setdefault(key, (aux, g_norm, u01, pos01, kw))
+            if u01.shape[0] == B:
+                decode_calls.append((key, g_norm, u01.clone(), pos01.clone(),
+                                     y.clone()))
+            return y
+
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        eb_ops.emulator_block_unified_cuda = recording_b1
+        eb.emulator_block_unified_cuda.launches = 0
+        try:
+            sess, res = serve.main(argv)
+        finally:
+            eb_ops.emulator_block_unified_cuda = real_b1
+        b1 = eb.emulator_block_unified_cuda.launches
+        peak = torch.cuda.max_memory_allocated(dev)
+        held_calls = sum(t.numel() * t.element_size()
+                         for c in decode_calls for t in c[2:])
+        plan_b, held_b = _analog_bytes(sess.ex)
+        cfg, full = sess.cfg, get_config(arch)
+        sites = sess.sites()
+        n_weights = sum(w.numel() for w in sites.values())
+        once = sum(_prefill_only(cfg, sk) for sk in sites)
+        want_b1 = once + (len(sites) - once) * G
+        pre_ms = res["prefill_s"] * 1e3
+        dec_ms = res["decode_s"] * 1e3 / (G - 1)
+        print(f"[frontends] {cfg.name}: d_model={cfg.d_model} d_ff={cfg.d_ff} "
+              f"vocab={cfg.vocab_size} heads={cfg.num_heads}/"
+              f"{cfg.num_kv_heads} decoder layers={cfg.num_layers} encoder "
+              f"layers={cfg.encoder_layers} frontend={cfg.frontend}"
+              + (f" ({cfg.frontend_tokens} image positions)"
+                 if cfg.frontend == "vision" else "")
+              + f"; sites={len(sites)} ({analog}; {once} at prefill alone; "
+              f"{n_weights / 1e9:.3f} G analog weights); B1 launches {b1} "
+              f"(expected {once} + {len(sites) - once} x {G} = {want_b1})",
+              flush=True)
+        widths = ("d_model", "d_ff", "vocab_size", "num_heads",
+                  "num_kv_heads", "head_dim", "frontend_tokens",
+                  "encoder_layers")
+        if any(getattr(cfg, f) != getattr(full, f) for f in widths) or (
+                layers is None and cfg.num_layers != full.num_layers):
+            fail(f"{arch} was not served at its published widths and depth")
+        if not b1 or b1 != want_b1 or sum(counts.values()) != b1:
+            fail(f"B1 launched {b1} times serving {arch} ({sum(counts.values())}"
+                 f" calls recorded), expected {want_b1}")
+        if res["tokens"].shape != (B, G) or not np_isfinite(res["logits"]):
+            fail(f"{arch}: tokens {res['tokens'].shape} or non-finite logits")
+        if any(kw.get("shift") is not None or kw.get(
+                "compute_dtype", torch.float32) != torch.float32
+               for *_, kw in first.values()):
+            fail(f"{arch}: a B1 call is not the fp32 ideal corner")
+        # the site shapes: (NB, NO) -> the tags of that shape
+        rows_a_block = sess.ex.acfg.rows * sess.ex.geom.tiles
+        shapes = {}
+        for sk, w in sites.items():
+            nbno = (-(-w.shape[0] // rows_a_block), w.shape[1])
+            shapes.setdefault(nbno, set()).add(sk.split(":")[-1])
+        n_dec = sum(n for (m, _), n in counts.items() if m == B)
+        if len(decode_calls) != n_dec or n_dec != (len(sites) - once) * (G - 1):
+            fail(f"{arch}: {len(decode_calls)} decode calls kept, "
+                 f"{n_dec} counted")
+        # every decode call against the plain version
+        errs, plain = {}, {}
+        for key, gn, u, pos, y in decode_calls:
+            a0, a1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            a0.record()
+            want = _plain_by_columns(first[key][0], gn, u, pos)
+            a1.record()
+            err = (y - want).abs()
+            if not bool((err <= ATOL + RTOL * want.abs()).all()) or not bool(
+                    torch.isfinite(y).all()):
+                fail(f"{arch}: a B1 decode call at (M, (NB, NO)) = {key} "
+                     f"disagrees with its plain version beyond rtol {RTOL} / "
+                     f"atol {ATOL} (max abs {float(err.max()):.3e})")
+            errs[key] = max(errs.get(key, 0.0), float(err.max()))
+            if key not in plain:
+                torch.cuda.synchronize()
+                plain[key] = a0.elapsed_time(a1)
+            del want, err
+        for key in sorted(errs):
+            print(f"[kernel vs plain] B1 {arch} decode calls at M={key[0]} "
+                  f"(NB, NO)={key[1]} ({'/'.join(sorted(shapes[key[1]]))}): "
+                  f"{counts[key]} calls, max_abs={errs[key]:.3e} (gate rtol "
+                  f"{RTOL}, atol {ATOL}) ok", flush=True)
+        out["b1_err"] = max([out["b1_err"]] + list(errs.values()))
+        del decode_calls
+        # the first call at each (M, shape) timed beside its bound
+        b1_rows, b1_ms = [], {}
+        for (m, (NB, NO)), (aux, gn, u, pos, kw) in sorted(first.items()):
+            tags = "/".join(sorted(shapes[(NB, NO)]))
+            ms = cuda_ms(lambda: eb.emulator_block_unified_cuda(aux, gn, u, pos),
+                         iters=3 if m == B else 1, warmup=1)
+            b1_ms[(m, NB, NO)] = ms
+            D, W = gn.shape[2], gn.shape[4]
+            O = aux["fcs"][-1][0].shape[1]
+            flat = aux["fcs"][0][0].shape[0]
+            nbytes, gemm, other = unified_work(m, NB, NO, D, W, O, flat, None)
+            bms, by = bound_ms(nbytes, (gemm + other, FP32_FLOP_S))
+            pms = plain.get((m, (NB, NO)))
+            print(f"[time] B1 {arch} {tags} M={m} NB={NB} NO={NO}: kernel "
+                  f"{ms:.3f} ms ({counts[(m, (NB, NO))]} calls), plain "
+                  f"{'not run' if pms is None else f'{pms:.3f} ms (column chunks)'}"
+                  f", bound {bms:.3f} ms ({by}: {nbytes / 1e9:.3f} GB, "
+                  f"{(gemm + other) / 1e9:.2f} GFLOP at fp32) [{card}]",
+                  flush=True)
+            b1_rows.append(dict(
+                shape=f"{arch} {tags} M={m} NB={NB} NO={NO}", ms=ms,
+                plain_ms=pms, bound_ms=bms, bound_by=by, bytes=nbytes,
+                flops=gemm + other, calls=counts[(m, (NB, NO))],
+                max_abs_err=errs.get((m, (NB, NO)))))
+        first.clear()
+        out["b1"][arch] = b1
+        out["b1_rows"].extend(b1_rows)
+        # B1's share: each call at its (M, shape)'s time
+        b1_pre = sum(b1_ms[(m,) + k] * n for (m, k), n in counts.items()
+                     if m != B)
+        b1_dec = sum(b1_ms[(m,) + k] * n for (m, k), n in counts.items()
+                     if m == B) / (G - 1)
+        print(f"[frontends] {arch} serve {B}x{P} + {G - 1} decode steps: "
+              f"prefill {pre_ms:.1f} ms (B1 {b1_pre:.1f} ms of it), decode "
+              f"{dec_ms:.2f} ms a step (B1 {b1_dec:.2f} ms); plans "
+              f"{plan_b / 1e9:.2f} GB, executor caches {held_b / 1e9:.2f} GB "
+              f"({held_b / max(1, n_weights):.1f} B an analog weight); peak "
+              f"memory {peak / 2**30:.2f} GiB (of it {held_calls / 2**30:.2f} "
+              f"GiB of decode calls kept for the check) [{card}]", flush=True)
+        row = dict(arch=arch, layers=cfg.num_layers,
+                   encoder_layers=cfg.encoder_layers, batch=B, prompt=P,
+                   gen=G, analog_layers=analog, sites=len(sites),
+                   prefill_only_sites=once, analog_weights=n_weights,
+                   b1_launches=b1, prefill_ms=pre_ms, decode_ms_step=dec_ms,
+                   b1_prefill_ms=b1_pre, b1_decode_ms=b1_dec,
+                   plan_gb=plan_b / 1e9, held_gb=held_b / 1e9,
+                   peak_gib=peak / 2**30, kept_calls_gib=held_calls / 2**30)
+        del sess, res
+        torch.cuda.empty_cache()
+
+        # prefill + decode == one forward, digital, fp32, the same
+        # image embeddings or frames given to both
+        g = torch.Generator(device=dev)
+        g.manual_seed(902)
+        n = cfg.frontend_tokens if cfg.frontend == "vision" else P
+        key = "image_embeds" if cfg.frontend == "vision" else "enc_frames"
+        inputs = {key: torch.randn((B, n, cfg.d_model), generator=g,
+                                   device=dev)}
+        row["consistency_max_abs"], row["logits_scale"] = _decode_vs_forward(
+            dev, cfg, B, P, 902, f"[frontends] {arch}", f", the same {key}",
+            inputs)
+        row["serve_s"] = time.perf_counter() - t_serve
+        out["rows"].append(row)
+        del inputs
+        torch.cuda.empty_cache()
+        print(f"[frontends] {arch} took {row['serve_s']:.1f} s", flush=True)
+    print(f"[frontends] phase 14 took {time.perf_counter() - t_phase:.1f} s",
           flush=True)
     return out
 

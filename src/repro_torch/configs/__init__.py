@@ -1,8 +1,5 @@
-"""Architecture config registry: ``get_config(name)`` / ``ARCH_NAMES``.
-
-Only the families the port serves are registered; the reference's two
-frontend archs raise ``NotImplementedError`` until their model code
-arrives (ROADMAP A9c)."""
+"""Architecture config registry: ``get_config(name)`` / ``ARCH_NAMES``
+(every arch of the reference's registry)."""
 from __future__ import annotations
 
 import importlib
@@ -28,25 +25,15 @@ _MODULES = {
     "llama4-scout-17b-a16e": "llama4_scout",
     "recurrentgemma-2b": "recurrentgemma_2b",
     "falcon-mamba-7b": "falcon_mamba_7b",
-}
-# the reference's archs whose model code is not ported yet, with what each
-# lacks (ROADMAP A9c)
-_NOT_PORTED = {
-    "internvl2-76b": "the vision frontend",
-    "seamless-m4t-large-v2": "the audio frontend, the encoder and the "
-                             "decoder's cross-attention",
+    "internvl2-76b": "internvl2_76b",
+    "seamless-m4t-large-v2": "seamless_m4t_large_v2",
 }
 
 ARCH_NAMES = tuple(_MODULES)
 
 
 def get_config(name: str) -> ArchConfig:
-    if name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"arch {name!r} needs {_NOT_PORTED[name]}, not ported yet "
-            "(ROADMAP A9c: the frontend archs)")
     if name not in _MODULES:
-        raise KeyError(f"unknown arch {name!r}; the port serves "
-                       f"{sorted(_MODULES)} (frontend archs: ROADMAP A9c)")
+        raise KeyError(f"unknown arch {name!r}; known: {sorted(_MODULES)}")
     mod = importlib.import_module(f"repro_torch.configs.{_MODULES[name]}")
     return mod.CONFIG

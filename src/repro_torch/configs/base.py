@@ -202,6 +202,7 @@ def reduced(cfg: ArchConfig, *, layers: Optional[int] = None) -> ArchConfig:
 
 
 def with_depth(cfg: ArchConfig, layers: int) -> ArchConfig:
-    """Same widths, ``layers`` decoder layers (depth cut only)."""
+    """Same widths, ``layers`` decoder layers (depth cut only; an
+    encoder-decoder arch keeps its ``encoder_layers``)."""
     return dataclasses.replace(cfg, name=f"{cfg.name}-L{layers}",
                                num_layers=layers)

@@ -10,14 +10,20 @@ CLI:
 
 runs on the GPU (``--device cpu`` runs on the CPU).  ``--arch`` is
 gemma3-1b, recurrentgemma-2b, falcon-mamba-7b, deepseek-coder-33b,
-qwen1.5-110b, command-r-plus-104b, phi3.5-moe-42b-a6.6b or
-llama4-scout-17b-a16e; the reference's two frontend archs raise
-``NotImplementedError`` (ROADMAP A9c).  ``--reduced`` serves the
+qwen1.5-110b, command-r-plus-104b, phi3.5-moe-42b-a6.6b,
+llama4-scout-17b-a16e, internvl2-76b or seamless-m4t-large-v2.  The
+frontends are the reference's stubs: internvl2-76b takes
+``frontend_tokens`` random patch embeddings over the prompt's first
+positions (through the ``frontend.proj`` site; the prompt must be at
+least that long), seamless-m4t-large-v2 a random frame a prompt
+position, which its encoder reads (sites ``enc.<period>:...``) and
+every decoder layer cross-attends to.  ``--reduced`` serves the
 reference's tiny same-family config; ``--layers`` alone keeps the full
 widths and cuts the depth.  ``--analog-backend`` is ``digital``,
 ``emulator`` (needs ``--emulator-params``), ``analytic`` or ``circuit``.
 The MoE archs' experts never call dense(): their analog sites are the
-attention projections, ``--analog-layers attn``.
+attention projections, ``--analog-layers attn``; internvl2-76b's
+projection is ``--analog-layers frontend.proj,attn``.
 
 Under a device corner (``nonideal``):
 
@@ -102,8 +108,11 @@ class ServeSession:
 
     ``generate()`` runs prefill + decode and returns tokens, per-step
     logits and timings.  With ``executor=None`` the session serves the
-    plain digital model.  ``params``/``prompt`` override the seeded ones
-    (the parity tests pass the reference's).
+    plain digital model.  A vision arch's ``image_embeds`` (B,
+    ``frontend_tokens``, D) and an encoder arch's ``enc_frames`` (B, P,
+    D) are drawn in bf16, each from its own derived seed.
+    ``params``/``prompt``/``image_embeds``/``enc_frames`` override the
+    seeded ones (the parity tests pass the reference's).
 
     ``prefill_traces`` / ``decode_traces`` stand for the reference's jit
     traces, which a ``RecompileSentinel(session=...)`` watches: the port
@@ -115,7 +124,9 @@ class ServeSession:
                  prompt_len: int = 32, gen: int = 16,
                  temperature: float = 0.0, seed: int = 0, executor=None,
                  device: DeviceLike = None, params=None,
-                 prompt: Optional[torch.Tensor] = None):
+                 prompt: Optional[torch.Tensor] = None,
+                 image_embeds: Optional[torch.Tensor] = None,
+                 enc_frames: Optional[torch.Tensor] = None):
         from repro_torch.configs import get_config, reduced as reduce_cfg
         from repro_torch.configs.base import ParallelConfig, with_depth
         from repro_torch.models.common import tree_map
@@ -144,6 +155,21 @@ class ServeSession:
             prompt = torch.randint(0, cfg.vocab_size, (batch, prompt_len),
                                    generator=g, device=self.device)
         self.batch = {"tokens": prompt.to(self.device, torch.int64)}
+
+        def frontend_input(given, purpose, n):
+            if given is None:
+                g = torch.Generator(device=self.device)
+                g.manual_seed(_derived_seed(seed, purpose))
+                given = torch.randn((batch, n, cfg.d_model), generator=g,
+                                    device=self.device)
+            return given.to(self.device, torch.bfloat16)
+
+        if cfg.frontend == "vision":
+            self.batch["image_embeds"] = frontend_input(
+                image_embeds, "image", cfg.frontend_tokens)
+        if cfg.encoder_layers:
+            self.batch["enc_frames"] = frontend_input(enc_frames, "frames",
+                                                      prompt_len)
         self._sample_gen = torch.Generator(device=self.device)
         self._sample_gen.manual_seed(_derived_seed(seed, "sample"))
         # telemetry identity of this serving call site: every
@@ -160,7 +186,9 @@ class ServeSession:
     # ------------------------------------------------------------------ #
     def sites(self) -> Dict[str, torch.Tensor]:
         """``site_key -> weight`` for every analog dense() call site,
-        recorded on a one-token digital forward."""
+        recorded on a digital prefill of one token (and one image
+        embedding or one frame: each site of the frontend and the
+        encoder runs once whatever the length)."""
         if self.ex is None:
             return {}
         if self._sites is None:
@@ -171,8 +199,8 @@ class ServeSession:
             binding = _StateBinding(record=rec)
             with torch.no_grad(), use_dense_hook(self.ex.hook), \
                     use_scan_states(binding), self.ex.bound_states(binding):
-                self._prefill_step(self.params,
-                                   {"tokens": self.batch["tokens"][:1, :1]})
+                self._prefill_step(self.params, {
+                    k: v[:1, :1] for k, v in self.batch.items()})
             self._sites = rec
         return self._sites
 
@@ -274,7 +302,9 @@ class ServeSession:
                           "serving call site", site=self.site,
                           arch=self.cfg.name).observe(t_prefill)
 
-        cache = M.zeros_cache(M.model_cache_schema(self.cfg, B, P + G), dev)
+        cache = M.zeros_cache(M.model_cache_schema(
+            self.cfg, B, P + G,
+            cross_len=P if self.cfg.encoder_layers else 0), dev)
         cache = _splice_tree(cache, pcache)
         del pcache
         tok = self._next_token(logits)
@@ -318,8 +348,10 @@ _NOT_PORTED = {"mesh": "A11", "devices": "A11"}
 
 
 def build_parser() -> argparse.ArgumentParser:
+    from repro_torch.configs import ARCH_NAMES
     ap = argparse.ArgumentParser(prog="repro_torch.launch.serve")
-    ap.add_argument("--arch", required=True)
+    ap.add_argument("--arch", required=True,
+                    help="one of " + ", ".join(ARCH_NAMES))
     ap.add_argument("--reduced", action="store_true",
                     help="serve the tiny same-family config")
     ap.add_argument("--layers", type=int, default=None,

@@ -1,6 +1,6 @@
 """Attention: GQA projections (with qwen's optional q/k/v biases) +
 blockwise-softmax attention in plain PyTorch (port of
-``repro.models.attention`` for the decoder's self-attention kinds).
+``repro.models.attention``).
 
 Prefill uses a flat-head layout (B, S, Hq, D) with KV repeated to Hq
 heads; decode keeps the grouped (B, S, Hkv, D) cache.  Decode writes the
@@ -13,13 +13,16 @@ donates the old cache; here the session owns the buffers).
   chunked : llama4's causal attention within the query's own chunk of
             ``cfg.window`` positions (1-chunk trick when S is a multiple
             of the chunk, else the masked blockwise path)
+  bidir   : the encoder's self attention (rope, no mask)
+  cross   : the decoder's attention to the encoder's keys and values
+            (no rope, no mask; decode reads them from the cross cache)
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.configs.base import (ArchConfig, CHUNKED_ATTN, GLOBAL_ATTN,
-                                      LOCAL_ATTN)
+from repro_torch.configs.base import (ArchConfig, BIDIR_ATTN, CHUNKED_ATTN,
+                                      GLOBAL_ATTN, LOCAL_ATTN)
 from repro_torch.models.common import (ParamSchema, apply_norm, apply_rope,
                                        dense, dense_schema, einsum,
                                        norm_schema)
@@ -27,12 +30,14 @@ from repro_torch.models.common import (ParamSchema, apply_norm, apply_rope,
 NEG_INF = -1e30
 
 
-def attention_schema(cfg: ArchConfig):
+def attention_schema(cfg: ArchConfig, *, cross: bool = False):
+    """A ``cross`` block (the decoder's attention to the encoder) has no
+    q/k/v biases."""
     d, qf = cfg.d_model, cfg.num_heads * cfg.head_dim
     kvf = cfg.num_kv_heads * cfg.head_dim
     s = {"wq": dense_schema(d, qf), "wk": dense_schema(d, kvf),
          "wv": dense_schema(d, kvf), "wo": dense_schema(qf, d)}
-    if cfg.qkv_bias:
+    if cfg.qkv_bias and not cross:
         s["bq"] = ParamSchema((qf,), "zeros")
         s["bk"] = ParamSchema((kvf,), "zeros")
         s["bv"] = ParamSchema((kvf,), "zeros")
@@ -81,10 +86,11 @@ def _out_proj(params, o, cfg: ArchConfig):
     return dense(o, params["wo"], "attn.o")
 
 
-def flash_attention(q, k, v, *, block_kv: int = 1024, window: int = 0,
-                    chunk: int = 0) -> torch.Tensor:
+def flash_attention(q, k, v, *, causal: bool = True, block_kv: int = 1024,
+                    window: int = 0, chunk: int = 0) -> torch.Tensor:
     """Causal attention, optionally within a sliding ``window`` or within
-    the query's own ``chunk``.  q: (B,Sq,H,D); k,v: (B,Sk,H,D)
+    the query's own ``chunk``; with ``causal=False`` every key is seen
+    (the encoder, the cross attention).  q: (B,Sq,H,D); k,v: (B,Sk,H,D)
     head-repeated.  Blockwise online softmax over KV blocks (a Python loop
     in place of the reference's scan).  Returns (B,Sq,H,D) in v's dtype."""
     B, Sq, H, D = q.shape
@@ -94,6 +100,7 @@ def flash_attention(q, k, v, *, block_kv: int = 1024, window: int = 0,
         pad = bk - Sk % bk
         k = torch.cat([k, k.new_zeros((B, pad, H, D))], dim=1)
         v = torch.cat([v, v.new_zeros((B, pad, H, D))], dim=1)
+    kv_len = Sk
     Sk = k.shape[1]
     q = q * (D ** -0.5)
     dev = q.device
@@ -105,12 +112,15 @@ def flash_attention(q, k, v, *, block_kv: int = 1024, window: int = 0,
         kb, vb = k[:, b * bk:(b + 1) * bk], v[:, b * bk:(b + 1) * bk]
         s = einsum("bqhd,bkhd->bhqk", q, kb).float()
         k_pos = b * bk + torch.arange(bk, device=dev)
-        mask = k_pos[None, :] <= q_pos[:, None]
-        if window:
-            mask &= (q_pos[:, None] - k_pos[None, :]) < window
-        if chunk:
-            mask &= (q_pos[:, None] // chunk) == (k_pos[None, :] // chunk)
-        s = torch.where(mask[None, None], s, NEG_INF)
+        if causal:
+            mask = k_pos[None, :] <= q_pos[:, None]
+            if window:
+                mask &= (q_pos[:, None] - k_pos[None, :]) < window
+            if chunk:
+                mask &= (q_pos[:, None] // chunk) == (k_pos[None, :] // chunk)
+            s = torch.where(mask[None, None], s, NEG_INF)
+        elif kv_len != Sk:             # only the padded keys are masked
+            s = torch.where((k_pos < kv_len)[None, None, None], s, NEG_INF)
         m_new = torch.maximum(m, s.amax(dim=-1))
         p = torch.exp(s - m_new[..., None])
         alpha = torch.exp(m - m_new)
@@ -197,20 +207,29 @@ def rope_base_for(cfg: ArchConfig, kind: str) -> float:
 
 
 def attn_mixer(params, x, *, cfg: ArchConfig, pcfg, kind: str,
-               positions=None, cache=None, pos=None, mode: str = "train"):
+               positions=None, cache=None, pos=None, enc_kv=None,
+               mode: str = "train"):
     """Returns (out (B,S,D), new_cache_or_None).  Cache layout:
-      global : {"k","v"}: (B, S_max, Hkv, Dh), position p at slot p
+      global/bidir : {"k","v"}: (B, S_max, Hkv, Dh), position p at slot p
       local/chunked : ring buffer (B, W, Hkv, Dh), slot = p mod W
+      cross : none; ``enc_kv`` = (k, v), each (B, S_enc, Hkv, Dh), the
+              encoder's projected keys and values (``blocks.apply_layer``
+              keeps them in the layer's cross cache)
     ``pos`` (decode) is the position being written: an int, every row at
     it, or a (B,) tensor, each row at its own (continuous batching: each
     row writes its own slot and masks its own history)."""
-    if kind not in (GLOBAL_ATTN, LOCAL_ATTN, CHUNKED_ATTN):
-        raise NotImplementedError(f"attention kind {kind!r} is not ported "
-                                  "yet (ROADMAP A9c: the encoder)")
     B, S, _ = x.shape
     base = rope_base_for(cfg, kind)
     q = _project_q(params, x, cfg)
     dev = x.device
+
+    if kind == "cross":
+        k, v = enc_kv
+        Sk = k.shape[1]
+        o = flash_attention(q, _repeat_kv(k.to(q.dtype), cfg),
+                            _repeat_kv(v.to(q.dtype), cfg), causal=False,
+                            block_kv=min(pcfg.attn_block_kv, Sk))
+        return _out_proj(params, o, cfg), None
 
     if mode == "decode":
         # one path for both forms: an int is every row at that position
@@ -251,10 +270,11 @@ def attn_mixer(params, x, *, cfg: ArchConfig, pcfg, kind: str,
     elif kind == CHUNKED_ATTN:
         o = chunked_attention(q, kf, vf, cfg.window)
     else:
-        o = flash_attention(q, kf, vf, block_kv=min(pcfg.attn_block_kv, S))
+        o = flash_attention(q, kf, vf, causal=kind != BIDIR_ATTN,
+                            block_kv=min(pcfg.attn_block_kv, S))
     new_cache = None
     if mode == "prefill":
-        if kind == GLOBAL_ATTN:
+        if kind in (GLOBAL_ATTN, BIDIR_ATTN):
             new_cache = {"k": k, "v": v}
         else:
             W = min(cfg.window, S)

@@ -1,11 +1,12 @@
 """Per-layer wiring: norms + residuals + mixer + FFN (port of
-``repro.models.blocks`` for the decoder's attention, RG-LRU and Mamba
-layers).
+``repro.models.blocks`` for every layer kind).
 
-A layer = (norm -> mixer -> residual) [+ (norm -> FFN/MoE -> residual)].
-Mamba layers are mixer-only (the mixer subsumes the FFN); cohere-style
-``parallel_block`` computes attention and FFN from the same normed
-input."""
+A layer = (norm -> mixer -> residual) [+ (norm -> cross attention ->
+residual)] [+ (norm -> FFN/MoE -> residual)].  Mamba layers are
+mixer-only (the mixer subsumes the FFN); cohere-style ``parallel_block``
+computes attention and FFN from the same normed input; an
+encoder-decoder's decoder layers attend to the encoder's output between
+the two."""
 from __future__ import annotations
 
 from typing import Any, Dict, Optional, Tuple, Union
@@ -13,8 +14,8 @@ from typing import Any, Dict, Optional, Tuple, Union
 import torch
 
 from repro_torch.configs.base import ArchConfig, ATTN_KINDS, MAMBA, RECURRENT
-from repro_torch.models.attention import (attention_schema, attn_mixer,
-                                          attn_cache_schema)
+from repro_torch.models.attention import (_project_kv, attention_schema,
+                                          attn_cache_schema, attn_mixer)
 from repro_torch.models.common import (activation, apply_norm, dense,
                                        dense_schema, norm_schema)
 from repro_torch.models.moe import moe_mixer, moe_schema
@@ -42,23 +43,22 @@ def mlp_apply(params, x, cfg: ArchConfig, pcfg=None):
     return dense(h, params["w_down"], "mlp.down")
 
 
-def _check_kind(cfg: ArchConfig, kind: str):
-    if kind not in ATTN_KINDS + (RECURRENT, MAMBA) or cfg.encoder_layers:
-        raise NotImplementedError(
-            f"layer kind {kind!r} of {cfg.name} is not ported yet "
-            "(ROADMAP A9c: the encoder)")
-
-
-def layer_schema(cfg: ArchConfig, kind: str):
-    _check_kind(cfg, kind)
+def layer_schema(cfg: ArchConfig, kind: str, *, cross: bool = False):
+    """``cross``: the layer also attends to the encoder's output
+    (``norm_cross``, ``cross``)."""
     d = cfg.d_model
     s: Dict[str, Any] = {"norm1": norm_schema(d, cfg.norm)}
-    if kind == RECURRENT:
+    if kind in ATTN_KINDS:
+        s["attn"] = attention_schema(cfg)
+    elif kind == RECURRENT:
         s["mixer"] = rglru_schema(cfg)
     elif kind == MAMBA:
         s["mixer"] = mamba_schema(cfg)
     else:
-        s["attn"] = attention_schema(cfg)
+        raise ValueError(kind)
+    if cross:
+        s["norm_cross"] = norm_schema(d, cfg.norm)
+        s["cross"] = attention_schema(cfg, cross=True)
     if kind != MAMBA and not cfg.parallel_block:
         s["norm2"] = norm_schema(d, cfg.norm)
     if kind != MAMBA:
@@ -71,16 +71,23 @@ def layer_schema(cfg: ArchConfig, kind: str):
 
 
 def layer_cache_schema(cfg: ArchConfig, kind: str, batch: int, s_max: int,
-                       dtype=None):
+                       *, cross_len: int = 0, dtype=None):
     """{name: {leaf: (shape, dtype)}} for one layer's decode cache: an
     attention layer's "k"/"v" under "attn", a recurrent layer's "conv"
-    (in ``dtype``) and "h" (float32) under "mixer"."""
+    (in ``dtype``) and "h" (float32) under "mixer"; with ``cross_len``
+    the encoder's projected "k"/"v" (B, cross_len, Hkv, Dh) under
+    "cross"."""
     dt = dtype or torch.bfloat16
     if kind == RECURRENT:
-        return {"mixer": rglru_cache_schema(cfg, batch, dtype=dt)}
-    if kind == MAMBA:
-        return {"mixer": mamba_cache_schema(cfg, batch, dtype=dt)}
-    return {"attn": attn_cache_schema(cfg, kind, batch, s_max, dtype=dt)}
+        out = {"mixer": rglru_cache_schema(cfg, batch, dtype=dt)}
+    elif kind == MAMBA:
+        out = {"mixer": mamba_cache_schema(cfg, batch, dtype=dt)}
+    else:
+        out = {"attn": attn_cache_schema(cfg, kind, batch, s_max, dtype=dt)}
+    if cross_len:
+        shape = (batch, cross_len, cfg.num_kv_heads, cfg.head_dim)
+        out["cross"] = {"k": (shape, dt), "v": (shape, dt)}
+    return out
 
 
 def _ffn(params, h, cfg: ArchConfig, pcfg, mode: str):
@@ -93,10 +100,14 @@ def _ffn(params, h, cfg: ArchConfig, pcfg, mode: str):
 
 
 def apply_layer(params, x, *, cfg: ArchConfig, pcfg, kind: str,
-                mode: str = "train", cache=None, pos=None, positions=None
+                mode: str = "train", cache=None, pos=None, positions=None,
+                enc_out=None
                 ) -> Tuple[torch.Tensor, Optional[dict], Union[torch.Tensor, float]]:
     """Returns (x, new_cache_or_None, aux loss): an MoE FFN's
-    load-balancing loss (a float32 scalar), else the number 0.0."""
+    load-balancing loss (a float32 scalar), else the number 0.0.  A
+    layer with a ``cross`` block attends to ``enc_out`` (B, S_enc, D) at
+    train and prefill, prefill keeping its projected keys and values as
+    the "cross" cache; decode reads that cache and returns it as it is."""
     aux = 0.0
     c = cache or {}
     h = apply_norm(params["norm1"], x, cfg.norm)
@@ -110,19 +121,31 @@ def apply_layer(params, x, *, cfg: ArchConfig, pcfg, kind: str,
         mix, mc = attn_mixer(params["attn"], h, cfg=cfg, pcfg=pcfg,
                              kind=kind, positions=positions,
                              cache=c.get("attn"), pos=pos, mode=mode)
-    new_cache = (None if mc is None else
+    new_cache = ({} if mc is None else
                  {"attn" if kind in ATTN_KINDS else "mixer": mc})
     if cfg.post_norms:
         mix = apply_norm(params["post_norm1"], mix, cfg.norm)
     if cfg.parallel_block and kind in ATTN_KINDS:
         # x + attn(n(x)) + ff(n(x))  (cohere)
         ff, aux = _ffn(params["ff"], h, cfg, pcfg, mode)
-        return x + mix + ff, new_cache, aux
+        return x + mix + ff, new_cache or None, aux
     x = x + mix
+    if "cross" in params:
+        hc = apply_norm(params["norm_cross"], x, cfg.norm)
+        if mode == "decode":
+            enc_kv = (c["cross"]["k"], c["cross"]["v"])
+            new_cache["cross"] = c["cross"]          # passed through
+        else:
+            enc_kv = _project_kv(params["cross"], enc_out, cfg)
+            if mode == "prefill":
+                new_cache["cross"] = {"k": enc_kv[0], "v": enc_kv[1]}
+        mix_c, _ = attn_mixer(params["cross"], hc, cfg=cfg, pcfg=pcfg,
+                              kind="cross", enc_kv=enc_kv, mode=mode)
+        x = x + mix_c
     if kind != MAMBA:
         h2 = apply_norm(params["norm2"], x, cfg.norm)
         ff, aux = _ffn(params["ff"], h2, cfg, pcfg, mode)
         if cfg.post_norms:
             ff = apply_norm(params["post_norm2"], ff, cfg.norm)
         x = x + ff
-    return x, new_cache, aux
+    return x, new_cache or None, aux

@@ -1,6 +1,8 @@
-"""Full model: embeddings -> period-stacked decoder stack -> final norm ->
-LM head, with train (``lm_loss``), prefill and decode entry points and a
-chunked cross-entropy (port of ``repro.models.model``).
+"""Full model: embeddings (with a vision arch's projected image
+embeddings written over the first positions) -> (encoder) ->
+period-stacked decoder stack -> final norm -> LM head (softcapped where
+the arch sets one), with train (``lm_loss``), prefill and decode entry
+points and a chunked cross-entropy (port of ``repro.models.model``).
 
 Layers group into the arch's repeating ``pattern`` period.  The
 parameters of the ``num_periods`` full periods are stacked on a leading
@@ -8,7 +10,12 @@ axis (``decoder.scan.p{i}``, as in the reference); the reference's
 ``lax.scan`` over periods is a Python loop here.  Remainder layers are
 the unrolled tail (``decoder.tail.t{i}``).  The LM head is the tied
 embedding or, untied, the ``head`` projection (a ``dense()`` site tagged
-``lm_head``).
+``lm_head``).  The frontends are the reference's stubs: a vision arch
+takes precomputed patch embeddings (``image_embeds``, through the
+``frontend.proj`` site), an encoder-decoder precomputed frames
+(``enc_frames``), which its encoder (``encoder.scan.p0``, bidirectional
+layers, sites keyed ``enc.{p}:...``) turns into what every decoder layer's
+cross attention reads.
 
 In training each stacked period runs under the reference's remat policy
 (``ParallelConfig.remat``, ``_remat_wrap``): ``"full"`` checkpoints the
@@ -26,7 +33,7 @@ import torch
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
-from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.base import ArchConfig, BIDIR_ATTN
 from repro_torch.models.blocks import apply_layer, layer_schema, layer_cache_schema
 from repro_torch.models.common import (ParamSchema, apply_norm,
                                        current_dense_hook, dense, einsum,
@@ -38,31 +45,36 @@ NEG_INF = -1e30
 
 def model_schema(cfg: ArchConfig) -> Dict[str, Any]:
     d, vp = cfg.d_model, cfg.padded_vocab
-    if cfg.frontend != "none" or cfg.encoder_layers or cfg.logit_softcap:
-        raise NotImplementedError(f"{cfg.name}: frontends, encoders and "
-                                  "logit softcaps are not ported yet "
-                                  "(ROADMAP A9c)")
+    cross = cfg.encoder_layers > 0
     s: Dict[str, Any] = {
         "embed": ParamSchema((vp, d), "embed", d ** -0.5),
         "final_norm": norm_schema(d, cfg.norm),
     }
     if not cfg.tie_embeddings:
         s["head"] = ParamSchema((d, vp), "normal", d ** -0.5)
+    if cfg.frontend == "vision":
+        s["proj"] = ParamSchema((d, d), "normal", d ** -0.5)
     scan: Dict[str, Any] = {}
     if cfg.num_periods > 0:
         for i, kind in enumerate(cfg.pattern):
-            scan[f"p{i}"] = stack_schema(layer_schema(cfg, kind),
+            scan[f"p{i}"] = stack_schema(layer_schema(cfg, kind, cross=cross),
                                          cfg.num_periods)
-    tail = {f"t{i}": layer_schema(cfg, kind)
+    tail = {f"t{i}": layer_schema(cfg, kind, cross=cross)
             for i, kind in enumerate(cfg.tail_kinds)}
     s["decoder"] = {"scan": scan, "tail": tail}
+    if cross:
+        s["encoder"] = {
+            "scan": {"p0": stack_schema(layer_schema(cfg, BIDIR_ATTN),
+                                        cfg.encoder_layers)},
+            "tail": {}, "final_norm": norm_schema(d, cfg.norm)}
     return s
 
 
 def model_cache_schema(cfg: ArchConfig, batch: int, s_max: int, *,
-                       dtype=None):
+                       cross_len: int = 0, dtype=None):
     """{scan: {p_i: stacked cache schema}, tail: {t_i: ...}} of
-    (shape, dtype) leaves."""
+    (shape, dtype) leaves; ``cross_len``: each decoder layer's cross
+    cache holds that many encoder positions."""
     def stack_leaf(node, n):
         if isinstance(node, tuple):
             return ((n,) + tuple(node[0]), node[1])
@@ -72,9 +84,11 @@ def model_cache_schema(cfg: ArchConfig, batch: int, s_max: int, *,
     if cfg.num_periods > 0:
         for i, kind in enumerate(cfg.pattern):
             scan[f"p{i}"] = stack_leaf(
-                layer_cache_schema(cfg, kind, batch, s_max, dtype=dtype),
+                layer_cache_schema(cfg, kind, batch, s_max,
+                                   cross_len=cross_len, dtype=dtype),
                 cfg.num_periods)
-    tail = {f"t{i}": layer_cache_schema(cfg, kind, batch, s_max, dtype=dtype)
+    tail = {f"t{i}": layer_cache_schema(cfg, kind, batch, s_max,
+                                        cross_len=cross_len, dtype=dtype)
             for i, kind in enumerate(cfg.tail_kinds)}
     return {"scan": scan, "tail": tail}
 
@@ -138,26 +152,59 @@ def _in_this_context(fn):
     return run
 
 
-def _remat_wrap(fn, remat: str):
+@contextlib.contextmanager
+def _after(warm, ctx):
+    """``warm()`` without grad, then ``ctx`` entered."""
+    with torch.no_grad():
+        warm()
+    with ctx:
+        yield
+
+
+def _remat_wrap(fn, remat: str, one_token):
     """``fn`` under the reference's remat policy (``_remat_wrap`` there):
     ``"none"`` as it is; ``"full"`` checkpointed, recomputed in backward;
     ``"dots"`` selectively checkpointed, the products' outputs kept.  The
-    recompute runs under the dense hook of the first pass."""
+    recompute runs under the dense hook of the first pass.
+
+    "dots" indexes the outputs it keeps by each op's call count, so a
+    recompute must run the ops its forward ran.  A dense hook builds its
+    per-weight caches on a site's first call and only looks them up
+    after, and keeps one entry a tag: the next stacked period's weights
+    replace it.  So with a hook installed (``one_token``: the call's
+    arguments -> the same cut to one token), the forward and the
+    recompute each first run ``fn`` on one token without grad, outside
+    the region, and both find the caches built (the hook sees each site
+    twice more a step)."""
     if remat == "none":
         return fn
     fn = _in_this_context(fn)
     if remat == "dots":
-        return functools.partial(
-            checkpoint, fn, use_reentrant=False,
-            context_fn=functools.partial(create_selective_checkpoint_contexts,
-                                         _save_dots))
+        if current_dense_hook() is None:
+            return functools.partial(
+                checkpoint, fn, use_reentrant=False,
+                context_fn=functools.partial(
+                    create_selective_checkpoint_contexts, _save_dots))
+
+        def run(*args):
+            small = one_token(*args)
+
+            def contexts():
+                fwd, rec = create_selective_checkpoint_contexts(_save_dots)
+                return (_after(lambda: fn(*small), fwd),
+                        _after(lambda: fn(*small), rec))
+
+            return checkpoint(fn, *args, use_reentrant=False,
+                              context_fn=contexts)
+
+        return run
     if remat == "full":
         return functools.partial(checkpoint, fn, use_reentrant=False)
     raise ValueError(f"unknown remat policy {remat!r}")
 
 
 def _run_stack(stack_params, x, *, cfg: ArchConfig, pcfg, pattern,
-               tail_kinds, mode, caches, pos, positions,
+               tail_kinds, mode, caches, pos, positions, enc_out=None,
                scan_group: str = "dec"):
     """Stacked periods (a Python loop) + unrolled tail.  Returns
     (x, aux, new_caches): ``aux`` sums the layers' auxiliary losses in
@@ -169,15 +216,14 @@ def _run_stack(stack_params, x, *, cfg: ArchConfig, pcfg, pattern,
     are keyed ``"{scan_group}.{p}:{tag}#{j}"`` as in the reference.  In
     training with grad enabled a period runs under ``pcfg.remat``; its
     scope is entered inside the checkpointed function, so a recompute
-    keys its sites as the first pass did.  Under ``"dots"`` with a dense
-    hook installed, each period first runs on one token without grad, so
-    the hook's cache builds happen outside the checkpointed region (the
-    hook sees each site once more a step)."""
+    keys its sites as the first pass did (under ``"dots"`` with a dense
+    hook, see ``_remat_wrap``'s one-token runs).  ``enc_out`` is what a
+    decoder layer's cross attention reads (train and prefill)."""
     provider = scan_states_provider()
     new_caches: Dict[str, Any] = {"scan": {}, "tail": {}}
     scan_params = stack_params["scan"]
 
-    def period_fn(x, aux, lp, lcs, p, positions):
+    def period_fn(x, aux, lp, lcs, p, positions, enc_out):
         ncs = {}
         scope = (provider.scan_period(scan_group, p)
                  if provider is not None else contextlib.nullcontext())
@@ -186,7 +232,8 @@ def _run_stack(stack_params, x, *, cfg: ArchConfig, pcfg, pattern,
                 lc = None if lcs is None else lcs[i]
                 x, nc, a = apply_layer(lp[f"p{i}"], x, cfg=cfg, pcfg=pcfg,
                                        kind=kind, mode=mode, cache=lc,
-                                       pos=pos, positions=positions)
+                                       pos=pos, positions=positions,
+                                       enc_out=enc_out)
                 aux = aux + a
                 if nc is not None:
                     ncs[f"p{i}"] = nc
@@ -194,16 +241,13 @@ def _run_stack(stack_params, x, *, cfg: ArchConfig, pcfg, pattern,
                         _write_back(lc, nc)
         return x, aux, ncs
 
+    def one_token(x, aux, lp, lcs, p, positions, enc_out):
+        return (x[:1, :1].detach(), 0.0, lp, None, p, positions[:, :1],
+                None if enc_out is None else enc_out[:1, :1].detach())
+
     period = period_fn
     if mode == "train" and torch.is_grad_enabled():
-        period = _remat_wrap(period_fn, pcfg.remat)
-    # "dots" indexes the outputs it keeps by each op's call count, so the
-    # recompute must run the ops its first pass ran; a dense hook builds
-    # its per-weight caches on a site's first call and only looks them up
-    # after, so those builds run first, on one token and without grad,
-    # before the period enters the checkpointed region
-    warm = (period is not period_fn and pcfg.remat == "dots"
-            and current_dense_hook() is not None)
+        period = _remat_wrap(period_fn, pcfg.remat, one_token)
     aux = 0.0
     if scan_params:
         n = next(iter(scan_params.values()))["norm1"]["w"].shape[0]
@@ -213,10 +257,7 @@ def _run_stack(stack_params, x, *, cfg: ArchConfig, pcfg, pattern,
                     for i in range(len(pattern))]
                    if mode == "decode" else None)
             lp = _select(scan_params, p)
-            if warm:
-                with torch.no_grad():
-                    period_fn(x[:1, :1], 0.0, lp, None, p, positions[:, :1])
-            x, aux, ncs = period(x, aux, lp, lcs, p, positions)
+            x, aux, ncs = period(x, aux, lp, lcs, p, positions, enc_out)
             per.append(ncs)
         if mode == "prefill":
             new_caches["scan"] = _stack(per)
@@ -226,7 +267,7 @@ def _run_stack(stack_params, x, *, cfg: ArchConfig, pcfg, pattern,
         lc = caches["tail"].get(f"t{i}") if mode == "decode" else None
         x, nc, a = apply_layer(stack_params["tail"][f"t{i}"], x, cfg=cfg,
                                pcfg=pcfg, kind=kind, mode=mode, cache=lc,
-                               pos=pos, positions=positions)
+                               pos=pos, positions=positions, enc_out=enc_out)
         aux = aux + a
         if nc is not None:
             new_caches["tail"][f"t{i}"] = nc
@@ -242,17 +283,53 @@ def embed_tokens(params, tokens, cfg: ArchConfig, compute_dtype):
     return x
 
 
+def encode(params, enc_frames, *, cfg: ArchConfig, pcfg):
+    """The encoder over precomputed frames (B, S_enc, D): its stacked
+    bidirectional layers (sites keyed ``enc.{p}:...``), then its final
+    norm.  Returns (enc_out, aux).  The layers get explicit positions
+    (the reference's default, ``arange(S_enc)``), which remat "dots"'
+    one-token warm pass slices."""
+    positions = torch.arange(enc_frames.shape[1],
+                             device=enc_frames.device)[None, :]
+    x, aux, _ = _run_stack(
+        {"scan": params["encoder"]["scan"], "tail": {}}, enc_frames, cfg=cfg,
+        pcfg=pcfg, pattern=(BIDIR_ATTN,), tail_kinds=(), mode="train",
+        caches=None, pos=None, positions=positions, scan_group="enc")
+    return apply_norm(params["encoder"]["final_norm"], x, cfg.norm), aux
+
+
 def forward(params, tokens, *, cfg: ArchConfig, pcfg, mode: str = "train",
-            cache=None, pos=None, compute_dtype=torch.bfloat16):
+            cache=None, pos=None, image_embeds=None, enc_frames=None,
+            compute_dtype=torch.bfloat16):
     """Returns (hidden (B,S,D), new_cache_or_None, aux loss): the aux
-    loss is a float32 scalar, 0 for an arch without an MoE FFN."""
+    loss is a float32 scalar, 0 for an arch without an MoE FFN.  An
+    encoder-decoder arch encodes ``enc_frames`` (B, S_enc, D) at train
+    and prefill (decode reads the cross caches); a vision arch writes
+    ``dense(image_embeds, proj)`` (B, n, D) over the first n positions
+    (n at most the sequence's length)."""
+    aux = 0.0
+    enc_out = None
+    if cfg.encoder_layers and mode != "decode":
+        if enc_frames is None:
+            raise ValueError(f"{cfg.name} encodes enc_frames at {mode}")
+        enc_out, aux = encode(params, enc_frames.to(compute_dtype), cfg=cfg,
+                              pcfg=pcfg)
     x = embed_tokens(params, tokens, cfg, compute_dtype)
+    if cfg.frontend == "vision" and image_embeds is not None:
+        n, S = image_embeds.shape[1], tokens.shape[1]
+        if n > S:
+            raise ValueError(f"{cfg.name}: {n} image positions do not fit "
+                             f"in a sequence of {S} tokens")
+        img = dense(image_embeds.to(compute_dtype), params["proj"],
+                    "frontend.proj")
+        x = torch.cat([img, x[:, n:]], dim=1)
     positions = (None if mode == "decode" else
                  torch.arange(tokens.shape[1], device=tokens.device)[None, :])
-    x, aux, new_caches = _run_stack(
+    x, aux_d, new_caches = _run_stack(
         params["decoder"], x, cfg=cfg, pcfg=pcfg, pattern=cfg.pattern,
         tail_kinds=cfg.tail_kinds, mode=mode, caches=cache, pos=pos,
-        positions=positions)
+        positions=positions, enc_out=enc_out)
+    aux = aux + aux_d
     x = apply_norm(params["final_norm"], x, cfg.norm)
     if not isinstance(aux, torch.Tensor):
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -261,12 +338,16 @@ def forward(params, tokens, *, cfg: ArchConfig, pcfg, mode: str = "train",
 
 def compute_logits(params, h, cfg: ArchConfig):
     """h: (B,S,D) -> logits (B,S,Vp) fp32 from the tied embedding or the
-    untied head, padded vocab masked."""
+    untied head, softcapped (``tanh(logits / c) * c``) where the arch
+    sets ``logit_softcap``, padded vocab masked."""
     if cfg.tie_embeddings:
         logits = einsum("bsd,vd->bsv", h, params["embed"].to(h.dtype))
     else:
         logits = dense(h, params["head"], "lm_head")
     logits = logits.float()
+    if cfg.logit_softcap:
+        c = cfg.logit_softcap
+        logits = torch.tanh(logits / c) * c
     if cfg.padded_vocab != cfg.vocab_size:
         mask = torch.arange(cfg.padded_vocab, device=h.device) >= cfg.vocab_size
         logits = torch.where(mask[None, None, :], NEG_INF, logits)
@@ -307,20 +388,24 @@ def chunked_xent(params, h, targets, mask, *, cfg: ArchConfig,
 
 def lm_loss(params, batch, *, cfg: ArchConfig, pcfg,
             compute_dtype=torch.bfloat16, z_coef: float = 1e-4):
-    """batch: {tokens, targets, mask}.  Returns (xent + aux, {"xent",
-    "aux"}); aux is the MoE FFNs' load-balancing loss (0 without one)."""
+    """batch: {tokens, targets, mask, [image_embeds], [enc_frames]}.
+    Returns (xent + aux, {"xent", "aux"}); aux is the MoE FFNs'
+    load-balancing loss (0 without one)."""
     h, _, aux = forward(params, batch["tokens"], cfg=cfg, pcfg=pcfg,
-                        mode="train", compute_dtype=compute_dtype)
+                        mode="train", image_embeds=batch.get("image_embeds"),
+                        enc_frames=batch.get("enc_frames"),
+                        compute_dtype=compute_dtype)
     loss = chunked_xent(params, h, batch["targets"], batch["mask"], cfg=cfg,
                         chunk=pcfg.xent_chunk, z_coef=z_coef)
     return loss + aux, {"xent": loss, "aux": aux}
 
 
-def prefill(params, tokens, *, cfg: ArchConfig, pcfg,
-            compute_dtype=torch.bfloat16):
+def prefill(params, tokens, *, cfg: ArchConfig, pcfg, image_embeds=None,
+            enc_frames=None, compute_dtype=torch.bfloat16):
     """Returns (last-position logits (B,Vp), cache)."""
     h, cache, _ = forward(params, tokens, cfg=cfg, pcfg=pcfg,
-                          mode="prefill", compute_dtype=compute_dtype)
+                          mode="prefill", image_embeds=image_embeds,
+                          enc_frames=enc_frames, compute_dtype=compute_dtype)
     return compute_logits(params, h[:, -1:], cfg)[:, 0], cache
 
 

@@ -37,6 +37,8 @@ def make_prefill_step(cfg: ArchConfig, pcfg: ParallelConfig):
 
     def prefill_step(params, batch):
         return M.prefill(params, batch["tokens"], cfg=cfg, pcfg=pcfg,
+                         image_embeds=batch.get("image_embeds"),
+                         enc_frames=batch.get("enc_frames"),
                          compute_dtype=cdt)
 
     return prefill_step
@@ -91,7 +93,8 @@ def make_grad_fn(cfg: ArchConfig, pcfg: ParallelConfig, tcfg: TrainConfig):
     ``pcfg.grad_accum`` microbatches (the grads accumulated in float32,
     the loss and its parts averaged).  ``batch`` holds ``tokens``,
     ``targets`` (B, S) integer tensors and ``mask`` (B, S) float32 on the
-    params' device."""
+    params' device, and a frontend arch's ``image_embeds`` or
+    ``enc_frames``."""
     cdt = compute_dtype_of(pcfg)
 
     def loss_of(params, batch):

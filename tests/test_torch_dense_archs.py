@@ -4,8 +4,9 @@ served by the port, against the JAX package on the CPU.
 
 (a) Configs and schemas: the config copies equal the reference's; the
     full-size key paths and shapes equal the reference's; ``get_config``
-    serves the four decoder archs of this slice and refuses only the two
-    frontend archs, naming ROADMAP A9c.
+    serves the four decoder archs of this slice and the two frontend
+    archs (``tests/test_torch_frontends.py``), and refuses an unknown
+    name.
 (b) Units in float32 (rtol 1e-5 / atol 1e-6): ``layernorm`` (also in
     bfloat16, within one bf16 ulp) and the biased q/k/v projections with
     nonzero biases (the reference's schema starts them at zero, which
@@ -76,11 +77,16 @@ def test_model_schema_matches_reference(arch):
 
 
 def test_get_config_serves_the_decoders_and_refuses_the_frontend_archs():
-    for arch in DECODERS:
+    """Every arch of the reference's registry is served now, the two
+    frontend archs too; only a name the reference does not know is
+    refused."""
+    from repro.configs import ARCH_NAMES as REF_ARCHS
+    from repro_torch.configs import ARCH_NAMES
+    assert ARCH_NAMES == REF_ARCHS
+    for arch in DECODERS + ("internvl2-76b", "seamless-m4t-large-v2"):
         assert same_config(get_config(arch), ref_get_config(arch))
-    for arch in ("internvl2-76b", "seamless-m4t-large-v2"):
-        with pytest.raises(NotImplementedError, match="ROADMAP A9c"):
-            get_config(arch)
+    with pytest.raises(KeyError, match="unknown arch"):
+        get_config("no-such-arch")
 
 
 def _bf16_np(a):

@@ -17,8 +17,7 @@ the JAX package on the CPU.
 (d) Port only: prefill + decode equals one forward over the whole
     sequence (fails if decode drops the recurrent states of stacked
     periods).
-(e) The serve CLI takes the new archs and refuses the two frontend archs
-    still unported (ROADMAP A9c).
+(e) The serve CLI takes the new archs and the two frontend archs.
 """
 import numpy as np
 import pytest
@@ -36,7 +35,7 @@ from torch_parity import (decode_matches_forward, model_parity_f32,  # noqa: E40
                           serve_sessions_bf16, step_rel)
 
 NEW_ARCHS = ("recurrentgemma-2b", "falcon-mamba-7b", "deepseek-coder-33b")
-UNPORTED = ("internvl2-76b", "seamless-m4t-large-v2")
+FRONTEND_ARCHS = ("internvl2-76b", "seamless-m4t-large-v2")
 
 
 def _shapes(tree, is_leaf, path=()):
@@ -128,12 +127,18 @@ def test_decode_matches_the_full_forward(arch, layers):
 
 
 def test_serve_cli_takes_the_new_archs_and_refuses_the_unported():
+    """The frontend archs, once refused, are served too: internvl2-76b's
+    4 reduced image positions fill the 4-token prompt, seamless'
+    encoder reads 4 frames."""
     from repro_torch.launch import serve
     base = ["--reduced", "--device", "cpu", "--batch", "1",
             "--prompt-len", "4", "--gen", "2"]
-    for arch in UNPORTED:
-        with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-            serve.main(["--arch", arch] + base)
+    for arch in FRONTEND_ARCHS:
+        sess, out = serve.main(["--arch", arch] + base)
+        key = "image_embeds" if arch == "internvl2-76b" else "enc_frames"
+        assert sess.batch[key].shape == (1, 4, 64)
+        assert out["tokens"].shape == (1, 2)
+        assert np.isfinite(out["logits"]).all()
     for arch in NEW_ARCHS:
         sess, out = serve.main(["--arch", arch] + base)
         assert sess.cfg.name == f"{arch}-reduced"

@@ -313,6 +313,28 @@ def test_remat_policies_give_the_same_grads(arch, layers, analog,
             assert torch.equal(g, want[k]), (remat, k)
 
 
+def test_remat_dots_with_a_hook_over_two_stacked_periods():
+    """Two stacked periods under "dots" with an analog hook: the hook
+    keeps one cache entry a tag, which the second period's weights
+    replace, so the first period's recompute must rebuild it before the
+    checkpointed region (its one-token run), or selective checkpointing
+    meets ops its forward did not run.  The grads equal "none"'s bit for
+    bit."""
+    cfg = reduced(get_config("deepseek-coder-33b"), layers=2)
+    assert cfg.num_periods == 2
+    params = S.init_model_params(0, cfg, "cpu")
+    tb = _port_batch(SyntheticLMData(cfg, 8, 2).batch(0))
+    out = {}
+    for remat in ("none", "dots"):
+        pcfg = dataclasses.replace(PCFG, remat=remat)
+        with use_dense_hook(_emulator_executor().hook):
+            out[remat] = S.make_grad_fn(cfg, pcfg, TCFG)(params, tb)
+    assert torch.equal(out["dots"][0], out["none"][0])
+    want = dict(tree_items(out["none"][2]))
+    for k, g in tree_items(out["dots"][2]):
+        assert torch.equal(g, want[k]), k
+
+
 def test_remat_recompute_keeps_the_dense_hook_on_autograd_thread():
     """A CUDA backward runs on the autograd engine's own thread, where the
     caller's thread-local dense hook is not installed; the recompute must

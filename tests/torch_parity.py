@@ -111,16 +111,35 @@ def same_config(tcfg, rcfg) -> bool:
     return all(t[f] == r[f] for f in t if f != "analog")
 
 
+def frontend_inputs(cfg, B, enc_len, seed=2):
+    """A frontend arch's extra inputs as float32 numpy arrays drawn from
+    ``seed``: ``image_embeds`` (B, frontend_tokens, D) for a vision arch,
+    ``enc_frames`` (B, enc_len, D) for an encoder-decoder; {} otherwise."""
+    rng = np.random.default_rng(seed)
+    out = {}
+    if cfg.frontend == "vision":
+        out["image_embeds"] = rng.standard_normal(
+            (B, cfg.frontend_tokens, cfg.d_model)).astype(np.float32)
+    if cfg.encoder_layers:
+        out["enc_frames"] = rng.standard_normal(
+            (B, enc_len, cfg.d_model)).astype(np.float32)
+    return out
+
+
 def model_parity_f32(arch, layers, P, backend, B=2, G=3,
-                     analog_layers=("mlp",), params_fn=None):
+                     analog_layers=("mlp",), params_fn=None, edit_cfg=None,
+                     enc_len=None):
     """Reduced ``arch`` at ``layers`` in float32 (params and compute):
     prefill logits and G greedy decode steps of the port against
     ``repro.models.model.prefill/decode_step`` on converted params --
     tokens equal, logits within rtol 1e-4 (atol 1e-4 of the logits'
     scale).  ``analog_layers`` are the emulator backend's projections;
     ``params_fn`` (numpy tree -> numpy tree) edits the reference's params
-    before both packages take them.  Returns the (reference, port)
-    executors (None, None digitally)."""
+    before both packages take them; ``edit_cfg`` edits both packages'
+    configs (dataclass fields of the same names).  A frontend arch gets
+    ``frontend_inputs`` (``enc_len`` frames, default P), and its cross
+    caches hold them.  Returns the (reference, port) executors (None,
+    None digitally)."""
     import jax
     import jax.numpy as jnp
     import torch
@@ -138,6 +157,8 @@ def model_parity_f32(arch, layers, P, backend, B=2, G=3,
 
     rcfg = ref_reduced(ref_get_config(arch), layers=layers)
     tcfg = reduced(get_config(arch), layers=layers)
+    if edit_cfg is not None:
+        rcfg, tcfg = edit_cfg(rcfg), edit_cfg(tcfg)
     assert same_config(tcfg, rcfg)
     rp = ref_init_params(jax.random.PRNGKey(0), RM.model_schema(rcfg))
     if params_fn is not None:
@@ -147,18 +168,22 @@ def model_parity_f32(arch, layers, P, backend, B=2, G=3,
                   scan_chunk=min(256, P))
     tpc = ParallelConfig(compute_dtype="float32", attn_block_kv=min(1024, P))
     tokens = np.random.default_rng(1).integers(0, rcfg.vocab_size, (B, P))
+    enc_len = P if enc_len is None else enc_len
+    cross_len = enc_len if rcfg.encoder_layers else 0
+    extra = frontend_inputs(rcfg, B, enc_len)
     rex, tex = executors(backend, analog_layers)
     rctx = ref_hook(rex.hook) if rex else ref_hook(None)
     tctx = use_dense_hook(tex.hook) if tex else use_dense_hook(None)
 
     with rctx:
-        pf = jax.jit(lambda t: RM.prefill(rp, t, cfg=rcfg, pcfg=rpc,
-                                          compute_dtype=jnp.float32))
+        pf = jax.jit(lambda t, x: RM.prefill(rp, t, cfg=rcfg, pcfg=rpc,
+                                             compute_dtype=jnp.float32, **x))
         dec = jax.jit(lambda t, c, pos: RM.decode_step(
             rp, t, c, pos, cfg=rcfg, pcfg=rpc, compute_dtype=jnp.float32))
-        rl, rcache = pf(jnp.asarray(tokens, jnp.int32))
-        cache = RM.zeros_cache(RM.model_cache_schema(rcfg, B, P + G,
-                                                     dtype=jnp.float32))
+        rl, rcache = pf(jnp.asarray(tokens, jnp.int32),
+                        {k: jnp.asarray(v) for k, v in extra.items()})
+        cache = RM.zeros_cache(RM.model_cache_schema(
+            rcfg, B, P + G, cross_len=cross_len, dtype=jnp.float32))
         cache = jax.tree.map(_ref_splice, cache, rcache)
         r_logits, r_toks = [np.asarray(rl)], [np.asarray(jnp.argmax(rl, -1))]
         tok = jnp.argmax(rl, -1)[:, None].astype(jnp.int32)
@@ -170,9 +195,11 @@ def model_parity_f32(arch, layers, P, backend, B=2, G=3,
 
     with torch.no_grad(), tctx:
         tl, tcache = TM.prefill(tp, torch.from_numpy(tokens), cfg=tcfg,
-                                pcfg=tpc, compute_dtype=torch.float32)
-        cache = TM.zeros_cache(TM.model_cache_schema(tcfg, B, P + G,
-                                                     dtype=torch.float32), "cpu")
+                                pcfg=tpc, compute_dtype=torch.float32,
+                                **{k: torch.from_numpy(v)
+                                   for k, v in extra.items()})
+        cache = TM.zeros_cache(TM.model_cache_schema(
+            tcfg, B, P + G, cross_len=cross_len, dtype=torch.float32), "cpu")
         cache = _splice_tree(cache, tcache)
         t_logits, t_toks = [tl.numpy()], [tl.argmax(-1).numpy()]
         tok = tl.argmax(-1)[:, None]
@@ -209,11 +236,13 @@ def site_keys_match(arch, layers, rex, tex):
 
 
 def decode_matches_forward(arch, layers, B=2, P=16, G=3, seed=5,
-                           edit_cfg=None):
+                           edit_cfg=None, enc_len=None):
     """Port only: reduced ``arch`` at ``layers`` (``edit_cfg`` may change
     the config), float32; prefill P tokens, then decode G more (teacher
     forcing), against one forward over all P + G: logits within rtol
-    1e-4, atol 1e-4 of their scale."""
+    1e-4, atol 1e-4 of their scale.  A frontend arch gets the same
+    ``frontend_inputs`` in both (``enc_len`` frames, default P, held by
+    the cross caches)."""
     import torch
     from repro_torch.configs import get_config, reduced
     from repro_torch.configs.base import ParallelConfig
@@ -227,15 +256,19 @@ def decode_matches_forward(arch, layers, B=2, P=16, G=3, seed=5,
     params = init_params(0, TM.model_schema(cfg), device="cpu")
     toks = torch.from_numpy(np.random.default_rng(seed).integers(
         0, cfg.vocab_size, (B, P + G)))
+    enc_len = P if enc_len is None else enc_len
+    extra = {k: torch.from_numpy(v)
+             for k, v in frontend_inputs(cfg, B, enc_len, seed + 1).items()}
     f32 = torch.float32
     with torch.no_grad():
         h, _, _ = TM.forward(params, toks, cfg=cfg, pcfg=pcfg, mode="prefill",
-                             compute_dtype=f32)
+                             compute_dtype=f32, **extra)
         want = TM.compute_logits(params, h[:, P - 1:], cfg).numpy()
         logits, pcache = TM.prefill(params, toks[:, :P], cfg=cfg, pcfg=pcfg,
-                                    compute_dtype=f32)
-        cache = TM.zeros_cache(TM.model_cache_schema(cfg, B, P + G, dtype=f32),
-                               "cpu")
+                                    compute_dtype=f32, **extra)
+        cache = TM.zeros_cache(TM.model_cache_schema(
+            cfg, B, P + G, cross_len=enc_len if cfg.encoder_layers else 0,
+            dtype=f32), "cpu")
         cache = _splice_tree(cache, pcache)
         got = [logits.numpy()]
         for i in range(G):
@@ -269,7 +302,7 @@ BF16_REL = {"digital": 0.02, "emulator": 0.5}
 def serve_sessions_bf16(arch, layers, backend, P=16, B=2, G=3, seed=0):
     """(port session, reference session, port output, reference output):
     ``ServeSession`` on the CPU in bfloat16, the port's on the reference
-    session's own params and prompt."""
+    session's own params, prompt, image embeddings and frames."""
     import torch
     from repro.launch.serve import ServeSession as RefSession
     from repro_torch.interop import params_from_numpy
@@ -282,7 +315,9 @@ def serve_sessions_bf16(arch, layers, backend, P=16, B=2, G=3, seed=0):
                       prompt_len=P, gen=G, seed=seed, executor=tex,
                       device="cpu", params=params_from_numpy(
                           tree_np(rs.params), device="cpu"),
-                      prompt=torch.tensor(np.asarray(rs.batch["tokens"])))
+                      prompt=torch.tensor(np.asarray(rs.batch["tokens"])),
+                      **{k: torch.from_numpy(to_np(v))
+                         for k, v in rs.batch.items() if k != "tokens"})
     return ts, rs, ts.generate(), rout
 
 
