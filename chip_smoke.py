@@ -119,8 +119,13 @@ JAX or of the JAX package.  Phases (any failure exits non-zero):
      a 4-slot engine, 8 requests, prompts of 64-256, 8 new tokens: bulk
      (B6 at every prefill, its first call held bit for bit) against
      batch-1 sessions, and packed (slot reuse, rows zeroed at admission)
-     against packed-solo runs (against the sessions printed).  B1's tick
-     calls are also launched one row at a time (bit-equality printed).  Prints requests/s, generated tokens/s, TTFT and latency
+     against packed-solo runs (against the sessions printed); (g) the
+     first wave through a fresh engine with the tuner at its default
+     setting (``REPRO_AUTOTUNE`` unset, a cache file of its own), sweeping
+     B1's tile at each new shape, then with the tiles in memory: tokens
+     equal to (a), each run's tokens/s, median tick, sweeps and their s.
+     B1's tick calls are also launched one row at a time (bit-equality
+     printed).  Prints requests/s, generated tokens/s, TTFT and latency
      p50/p90 (the snapshot's histogram buckets and the requests' own
      clocks), the median tick, the mean occupancy, B1's and B6's
      launches on the engine runs, peak memory; a JSON ``serving`` line
@@ -241,12 +246,44 @@ JAX or of the JAX package.  Phases (any failure exits non-zero):
      ``decoder_path``: B1's prefill and decode calls at each site shape),
      and phase 14's (``frontend_launches`` per arch, also counted in
      ``launches``; ``frontend_path``: B1's first call at each (M, site
-     shape), with its count and the largest error of its decode calls).
+     shape), with its count and the largest error of its decode calls),
+     and phase 16's (``mesh_launches`` per run, summed over its ranks and
+     counted in ``launches``; ``mesh_path``: each rank's figures;
+     ``tuner``: phase 16 (d), its launches not counted in ``launches``).
+ 16. the tensor-parallel analog plane and the autotuner (run before the
+     kernels line, which carries their launches).  Phases 1-15 run with
+     ``REPRO_AUTOTUNE=0`` (set at the start, with the tuner's cache file
+     under the gitignored ``build/``), so their launch counts and times
+     stay comparable with earlier runs.  (a) gemma3-1b at full width,
+     depth 2, batch 4, prompt 32, 8 tokens, on the phase-3 net through
+     the serve CLI with ``--mesh 1,2``, ``2,1`` and ``2,2`` (every rank on
+     the one card, over gloo; ``mlp.up``/``mlp.gate`` (NB, NO) = (5,
+     6912) and ``mlp.down`` (27, 1152) take the col scheme at tp = 2):
+     tokens equal to phase 3's unsharded serve and logits bit-equal; per
+     rank B1's launches (48), its states' ``gf`` bytes (half the whole
+     lattice's at tp = 2), every byte its executor caches (1/tp of phase
+     3's executor's), its peak allocation, prefill ms, decode ms a step,
+     and, from a
+     second generate timed with synchronizations (``--mesh-times``), B1's
+     ms a call beside the collectives'.  (b) the row scheme forced at
+     phi3.5-moe's q projection (K = N = 4096: (NB, NO) = (16, 4096)) at
+     M = 2 and 32 on (1, 2) and (1, 4) meshes: within rtol 1e-5 / atol
+     2e-6 of the unsharded executor, each rank's B1 calls held against
+     the plain version (rtol 1e-4 / atol 1e-5).  (c) a ``stressed``,
+     fault-remapped deployment saved under (1, 2), served unsharded from
+     the file, and loaded under (2, 2): tokens equal, logits bit-equal
+     to the unsharded serve on both meshes.  (d) the tuner with
+     ``REPRO_AUTOTUNE=1`` and a fresh cache file: B1's swept row tile at
+     ``mlp.up`` M = 4 and 128, each candidate's ms beside phase 4's
+     bound, the second resolution a ``memory`` hit and a fresh process's
+     a ``disk`` hit, and B1 bit-equal (``torch.equal``) under every
+     candidate tile.
 """
 from __future__ import annotations
 
 import importlib
 import json
+import os
 import subprocess
 import sys
 import time
@@ -510,6 +547,14 @@ def main() -> None:
     torch.cuda.set_device(dev)
     BF16 = torch.bfloat16
     t_start = time.perf_counter()
+    # phases 1-15 resolve B1's row tile to its default, as before the
+    # tuner, from a cache file of this run (phase 16 (d) turns it on)
+    (ROOT / "build").mkdir(exist_ok=True)
+    os.environ["REPRO_AUTOTUNE"] = "0"
+    os.environ["REPRO_AUTOTUNE_CACHE"] = str(ROOT / "build" / "chip_smoke_autotune.json")
+    Path(os.environ["REPRO_AUTOTUNE_CACHE"]).unlink(missing_ok=True)
+    print(f"REPRO_AUTOTUNE={os.environ['REPRO_AUTOTUNE']} "
+          f"REPRO_AUTOTUNE_CACHE={os.environ['REPRO_AUTOTUNE_CACHE']}", flush=True)
 
     # ---- phase 0 --------------------------------------------------------
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -762,6 +807,11 @@ def main() -> None:
     print(f"[serve] prefill 4x32: {pre_ms:.1f} ms ({4 * 32 / out['prefill_s']:.1f} "
           f"tok/s); decode 7 steps: {dec_ms:.1f} ms "
           f"({4 * 7 / out['decode_s']:.1f} tok/s) [{card}]", flush=True)
+    # phase 16's yardstick
+    unsharded = {"tokens": out["tokens"], "logits": out["logits"],
+                 "cache_bytes": sess.ex.cache_bytes()[1]}
+    print(f"[serve] executor caches {unsharded['cache_bytes'] / 1e6:.1f} MB "
+          f"[{card}]", flush=True)
     del sess, out
     torch.cuda.empty_cache()
 
@@ -1080,6 +1130,9 @@ def main() -> None:
     front = frontend_phase(dev, card, npz)
     torch.cuda.empty_cache()
 
+    # ---- phase 16: the tensor-parallel plane and the tuner ---------------
+    mesh = mesh_phase(dev, card, npz, unsharded, b1_shapes)
+
     # ---- phase 15: the kernels line --------------------------------------
     ebk = "emulator_block/emulator_block.py:"
     b1_head = next(r for r in b1_shapes if r["shape"].startswith("mlp.up")
@@ -1092,17 +1145,19 @@ def main() -> None:
               ebk + "295",
               b1_launches + serv["b1"] + sum(life["b1"].values())
               + train["b1"]["training"] + sum(dec["b1"].values())
-              + sum(front["b1"].values()),
+              + sum(front["b1"].values()) + sum(mesh["b1"].values()),
               max(max_abs["B1"], ni["b1_err"], rec["b1_err"], serv["b1_err"],
                   life["b1_err"], train["b1_err"], dec["b1_err"],
-                  front["b1_err"]),
+                  front["b1_err"], mesh["b1_err"]),
               b1_head, b1_shapes, nonideal_launches=ni["b1"],
               model_launches=rec["b1"], model_path=rec["b1_rows"],
               engine_launches=serv["b1"], engine_path=serv["b1_rows"],
               lifetime_launches=life["b1"], lifetime_path=life["b1_rows"],
               training_launches=train["b1"], training_path=train["b1_rows"],
               decoder_launches=dec["b1"], decoder_path=dec["b1_rows"],
-              frontend_launches=front["b1"], frontend_path=front["b1_rows"]),
+              frontend_launches=front["b1"], frontend_path=front["b1_rows"],
+              mesh_launches=mesh["b1"], mesh_path=mesh["rows"],
+              tuner=mesh["tuner"]),
         entry("emulator_block_unified (bf16 mode)",
               src + "emulator_block_unified.cu", ebk + "295", b1_bf16_launches,
               max_abs["B1 bf16"], b1_bf16_head, b1_bf16_shapes),
@@ -1132,6 +1187,7 @@ def main() -> None:
     print(json.dumps({"training": train["row"]}), flush=True)
     print(json.dumps({"decoders": dec["rows"]}), flush=True)
     print(json.dumps({"frontends": front["rows"]}), flush=True)
+    print(json.dumps({"mesh": mesh["rows"]}), flush=True)
     print(f"[done] {time.perf_counter() - t_start:.1f} s", flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
@@ -1997,6 +2053,78 @@ def _serve_waves(eng, prompts, new, wave, ticks):
     return outs, time.perf_counter() - t0
 
 
+def _engine_under_the_tuner(sess, states, prompts, outs, card):
+    """Phase 10 (g): the first wave's requests through a fresh engine with
+    the tuner at its default setting (``REPRO_AUTOTUNE`` unset: B1's row
+    tile swept at each new shape, on a cache file of its own), then again
+    with the swept tiles in memory; telemetry on in both.  The tokens
+    must be (a)'s; returns each run's figures."""
+    from repro_torch.kernels import autotune
+    from repro_torch.kernels.emulator_block import emulator_block as eb
+    from repro_torch.kernels.emulator_block.emulator_block import (
+        default_block_m)
+    from repro_torch.launch.batching import ContinuousBatchEngine
+    from repro_torch.obs import OBS, snapshot
+    import numpy as np
+    saved = {k: os.environ.pop(k, None)
+             for k in ("REPRO_AUTOTUNE", "REPRO_AUTOTUNE_CACHE")}
+    cache = ROOT / "build" / "chip_smoke_engine_tuned.json"
+    cache.unlink(missing_ok=True)
+    os.environ["REPRO_AUTOTUNE_CACHE"] = str(cache)
+    autotune.clear()
+    runs = []
+    try:
+        for run in ("sweeping", "tiles in memory"):
+            OBS.reset()
+            OBS.enable()
+            eng = ContinuousBatchEngine(sess, max_slots=SERVE_SLOTS,
+                                        max_len=SERVE_MAX_LEN,
+                                        page_size=SERVE_PAGE)
+            eng.refresh_states(states)
+            ticks = _Ticks(eng)
+            n0 = eb.emulator_block_unified_cuda.launches
+            got, wall = _serve_waves(eng, prompts[:SERVE_WAVE], SERVE_NEW,
+                                     SERVE_WAVE, ticks)
+            b1 = eb.emulator_block_unified_cuda.launches - n0
+            if not all(np.array_equal(a, b) for a, b in zip(got, outs)):
+                fail(f"[serving] (g) {run}: the tuner changed the tokens")
+            met = snapshot()["metrics"]
+            sw = met.get("autotune_sweep_seconds", {"series": []})["series"]
+            tiles = {}
+            for key, cfg in autotune._MEM.items():
+                m = int(key.split("|")[2])
+                tiles.setdefault((cfg["block_m"] == default_block_m(m)), []
+                                 ).append(m)
+            r = dict(run=run, wall_s=wall,
+                     tokens_s=SERVE_WAVE * SERVE_NEW / wall,
+                     tick_ms_median=float(np.median(ticks.ms)),
+                     tick_ms_max=float(max(ticks.ms)), b1_launches=b1,
+                     sweeps=int(sum(x["count"] for x in sw)),
+                     sweep_s=float(sum(x["sum"] for x in sw)),
+                     keys_default=len(tiles.get(True, [])),
+                     keys_other=sorted(tiles.get(False, [])))
+            runs.append(r)
+            print(f"[serving] (g) tuner at its default, {run}: "
+                  f"{SERVE_WAVE} requests in {wall:.3f} s, "
+                  f"{r['tokens_s']:.1f} generated tokens/s, median tick "
+                  f"{r['tick_ms_median']:.2f} ms (max {r['tick_ms_max']:.1f})"
+                  f", {r['sweeps']} sweeps in {r['sweep_s']:.2f} s, B1 "
+                  f"launches {b1} (sweeps' included); {len(autotune._MEM)} "
+                  f"keys, {r['keys_default']} kept the default tile, the "
+                  f"others at M = {r['keys_other']}; tokens equal to (a) "
+                  f"[{card}]", flush=True)
+    finally:
+        OBS.disable()
+        OBS.reset()
+        autotune.clear()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    return runs
+
+
 def serving_phase(dev, card, npz):
     """Phase 10: the serving plane (``launch.batching``) at full width on
     the card, telemetry on.  (a) gemma3-1b (depth 2, MLPs on the phase-3
@@ -2014,8 +2142,11 @@ def serving_phase(dev, card, npz):
     tokens, and each run's tokens/s.  (f) falcon-mamba-7b (digital, depth
     2) through a 4-slot engine, bulk (B6 at each prefill, its first path
     call held bit for bit) against batch-1 sessions, packed with slot
-    reuse against packed-solo runs.  Returns B1's and B6's launches on the engine runs
-    (a) and (f), their path-call errors and rows."""
+    reuse against packed-solo runs.  (g) the first wave through a fresh
+    engine with the tuner at its default setting, sweeping, then with its
+    tiles in memory (``_engine_under_the_tuner``).  Returns B1's and B6's
+    launches on the engine runs (a) and (f), their path-call errors and
+    rows."""
     import numpy as np
     import torch
     sys.path.insert(0, str(ROOT / "tools"))
@@ -2261,6 +2392,8 @@ def serving_phase(dev, card, npz):
           f"{', '.join(f'{v:.1f}' for v in tps['off'])}; on "
           f"{', '.join(f'{v:.1f}' for v in tps['on'])}; tokens equal to (a) "
           f"in every run [{card}]", flush=True)
+    row["tuner_runs"] = _engine_under_the_tuner(sess, states, prompts, outs,
+                                                card)
 
     # (b) packed prefill: batched against packed-solo runs
     ep = ContinuousBatchEngine(sess, max_slots=SERVE_SLOTS,
@@ -2944,8 +3077,11 @@ def _fleet_campaign(dev, card, cond, errors):
         NB, NO = gn.shape[:2]
         label = (f"B1 fleet chunk {part} M={u.shape[0]} NB={NB} NO={NO} "
                  f"({FLEET_CHUNK} devices stacked)")
+        # the launch's keywords less its row tile, which the plain
+        # version has no use for
         err = compare(label, y, eb.emulator_block_unified_plain(
-            aux, gn, u, pos, **kw))
+            aux, gn, u, pos, **{k: v for k, v in kw.items()
+                                if k != "block_m"}))
         out["b1_err"] = max(out["b1_err"], err)
         # device 7 alone: its (NB, NO/256) slice of the stacked lattice
         no = NO // FLEET_CHUNK
@@ -3587,26 +3723,6 @@ DEC_SERVES = (("qwen1.5-110b", 1, 2, 16, 4, "mlp"),
 PLAIN_CHUNK_BLOCKS = 16_384
 
 
-def _analog_bytes(ex):
-    """(bytes of the executor's conductance plans, bytes of every tensor
-    its plan, state and read-plan caches hold), each storage once."""
-    seen, plans, total = set(), 0, 0
-    caches = ((ex._plans, lambda p: (p.g_feat, p.g_norm)),
-              (ex._state_cache, lambda st: (st.gf,)),
-              (ex._read_cache, lambda p: (p.g_feat, p.g_norm)))
-    for i, (cache, tensors) in enumerate(caches):
-        for ent in cache.values():
-            for t in tensors(ent[2]):
-                key = t.untyped_storage().data_ptr()
-                if key in seen:
-                    continue
-                seen.add(key)
-                n = t.untyped_storage().nbytes()
-                total += n
-                plans += n if i == 0 else 0
-    return plans, total
-
-
 def _plain_by_columns(aux, gn, u, pos):
     """B1's plain version on ``gn`` (NB, NO, ...) in chunks of output
     columns of at most ``PLAIN_CHUNK_BLOCKS`` blocks: the same (2,
@@ -3696,7 +3812,7 @@ def decoder_phase(dev, card, npz):
             moe_mod.slots = real_slots
         b1 = eb.emulator_block_unified_cuda.launches
         peak = torch.cuda.max_memory_allocated(dev)
-        plan_b, held_b = _analog_bytes(sess.ex)
+        plan_b, held_b = sess.ex.cache_bytes()
         cfg, full = sess.cfg, get_config(arch)
         sites = sess.sites()
         n_weights = sum(w.numel() for w in sites.values())
@@ -3881,7 +3997,7 @@ def frontend_phase(dev, card, npz):
         peak = torch.cuda.max_memory_allocated(dev)
         held_calls = sum(t.numel() * t.element_size()
                          for c in decode_calls for t in c[2:])
-        plan_b, held_b = _analog_bytes(sess.ex)
+        plan_b, held_b = sess.ex.cache_bytes()
         cfg, full = sess.cfg, get_config(arch)
         sites = sess.sites()
         n_weights = sum(w.numel() for w in sites.values())
@@ -4280,6 +4396,336 @@ def entry_points_phase(dev, card):
             fail(f"{rec['name']} launched {rec['launches']} times for "
                  f"{len(rec['shapes'])} entry-point calls")
     return b4, b5, b6
+
+
+# phase 16's sizes: (a) and (c) serve gemma3-1b at full width as phase 3
+# does; (b) the row scheme at phi3.5-moe's q projection (K = N = 4096:
+# (NB, NO) = (16, 4096)); (d) the tuner at full-width mlp.up
+MESH_SERVE = ["--arch", "gemma3-1b", "--layers", "2", "--batch", "4",
+              "--prompt-len", "32", "--gen", "8", "--seed", "0",
+              "--analog-backend", "emulator"]
+MESH_SHAPES = ("1,2", "2,1", "2,2")
+MESH_B1_LAUNCHES = 3 * 2 * 8          # 3 MLP sites x 2 layers x 8 forwards
+ROW_SITE = (4096, 4096)
+ROW_M = (2, 32)
+ROW_TPS = (2, 4)
+ROW_RTOL, ROW_ATOL = 1e-5, 2e-6      # the reference's row-scheme tolerance
+TUNE_M = (4, 128)
+
+
+def _bits_equal(a, b) -> bool:
+    """Same shape and the same bits (a sign of zero included)."""
+    import numpy as np
+    return a.shape == b.shape and np.array_equal(
+        np.ascontiguousarray(a).view(np.uint32),
+        np.ascontiguousarray(b).view(np.uint32))
+
+
+def _mesh_serve(extra, card, label, want=None):
+    """One ``serve --mesh`` run: rank 0's output and each rank's figures,
+    printed; the tokens and logits held against ``want`` if given."""
+    from repro_torch.launch import serve
+    t0 = time.perf_counter()
+    sess, out = serve.main(MESH_SERVE + extra)
+    secs = time.perf_counter() - t0
+    if sess is not None or "ranks" not in out:
+        fail(f"[mesh] {label}: the serve did not run on a mesh")
+    if not np_isfinite(out["logits"]) or out["tokens"].shape != (4, 8):
+        fail(f"[mesh] {label}: non-finite logits or tokens of shape "
+             f"{out['tokens'].shape}")
+    if want is not None:
+        if not (out["tokens"] == want["tokens"]).all():
+            fail(f"[mesh] {label}: tokens differ from the unsharded serve")
+        if not _bits_equal(out["logits"], want["logits"]):
+            fail(f"[mesh] {label}: logits are not bit-equal to the "
+                 "unsharded serve's")
+    dp, tp = (int(v) for v in extra[extra.index("--mesh") + 1].split(","))
+    rows = []
+    for r in out["ranks"]:
+        if r["b1_launches"] != MESH_B1_LAUNCHES:
+            fail(f"[mesh] {label} rank {r['rank']}: B1 launched "
+                 f"{r['b1_launches']} times, expected {MESH_B1_LAUNCHES}")
+        if r["gf_bytes"] * tp != r["full_gf_bytes"]:
+            fail(f"[mesh] {label} rank {r['rank']}: holds {r['gf_bytes']} B "
+                 f"of gf, not 1/{tp} of {r['full_gf_bytes']} B")
+        if want is not None and r["cache_bytes"] * tp != want["cache_bytes"]:
+            fail(f"[mesh] {label} rank {r['rank']}: its executor caches "
+                 f"{r['cache_bytes']} B, not 1/{tp} of the unsharded "
+                 f"executor's {want['cache_bytes']} B")
+        timed = ("" if "b1_ms" not in r else
+                 f"; timed generate: B1 {r['b1_ms']:.3f} ms a call "
+                 f"({r['b1_calls']} calls), all_reduce "
+                 f"{r['all_reduce_ms']:.3f} ms a call "
+                 f"({r['all_reduce_calls']} calls)")
+        print(f"[mesh] {label} rank {r['rank']} (data, model) = "
+              f"{tuple(r['coords'])}: B1 launches {r['b1_launches']}, gf "
+              f"{r['gf_bytes'] / 1e6:.1f} MB of {r['full_gf_bytes'] / 1e6:.1f}"
+              f" MB, executor caches {r['cache_bytes'] / 1e6:.1f} MB"
+              + ("" if want is None else
+                 f" of {want['cache_bytes'] / 1e6:.1f} unsharded")
+              + f", allocated {r['resident_bytes'] / 2**30:.2f} GiB after the"
+              f" generate (peak {r['peak_bytes'] / 2**30:.2f}), prefill "
+              f"{r['prefill_ms']:.1f} ms, decode "
+              f"{r['decode_ms_step']:.2f} ms a step{timed} [{card}]",
+              flush=True)
+        rows.append(dict(run=label, mesh=[dp, tp], **{
+            k: (list(v) if isinstance(v, tuple) else v)
+            for k, v in r.items()}))
+    print(f"[mesh] {label}: tokens "
+          f"{'equal' if want is not None else 'not compared'}, "
+          f"{secs:.1f} s with the ranks' start [{card}]", flush=True)
+    return out, rows
+
+
+def _row_rank(rank, world, device, payload):
+    """One rank of phase 16 (b): the forced row scheme at the q
+    projection on a (1, world) mesh; every B1 call of the rank held
+    against the plain version; the outputs, launches and times back."""
+    import torch
+    from repro_torch.configs.base import AnalogConfig
+    from repro_torch.configs.rram_ps32 import CASE_A
+    from repro_torch.core.analog import AnalogExecutor
+    from repro_torch.interop import load_emulator_npz
+    from repro_torch.kernels.emulator_block import emulator_block as eb
+    from repro_torch.kernels.emulator_block import ops
+    from repro_torch.launch.mesh import make_serve_mesh
+    mesh = make_serve_mesh(1, world, device)
+    ex = AnalogExecutor(AnalogConfig(enabled=True, backend="emulator",
+                                     layers=("attn",)), geom=CASE_A,
+                        emulator_params=load_emulator_npz(payload["npz"],
+                                                          device),
+                        mesh=mesh, shard_scheme="row")
+    calls = []
+    kernel = ops.emulator_block_unified_cuda
+
+    def recorded(aux, g, u, pos, **kw):
+        y = kernel(aux, g, u, pos, **kw)
+        calls.append((aux, g, u, pos, kw.get("shift"), y))
+        return y
+
+    ops.emulator_block_unified_cuda = recorded
+    w, xs = _row_inputs(device, payload["site"], payload["m"])
+    eb.emulator_block_unified_cuda.launches = 0
+    ys = [ex.matmul(x, w, "attn.q").cpu().numpy() for x in xs]
+    launches = eb.emulator_block_unified_cuda.launches
+    err = 0.0
+    for aux, g, u, pos, sh, y in calls:
+        want = eb.emulator_block_unified_plain(aux, g, u, pos, shift=sh)
+        err = max(err, compare(f"B1 row rank {rank}/{world} M={u.shape[0]} "
+                               f"NB={g.shape[0]} NO={g.shape[1]}", y, want))
+    ops.emulator_block_unified_cuda = kernel
+    ex.mesh_times = {}
+    for _ in range(3):
+        for x in xs:
+            ex.matmul(x, w, "attn.q")
+    times = {k: sum(v) / len(v) for k, v in ex.mesh_times.items()}
+    return dict(ys=ys, launches=launches, calls=len(calls), err=err,
+                times=times)
+
+
+def _row_inputs(device, site, ms):
+    """The (K, N) weight and the rows of each M of ``ms``, from seeds."""
+    import torch
+    g = torch.Generator(device=device)
+    g.manual_seed(1616)
+    K, N = site
+    w = torch.randn((K, N), generator=g, device=device) * K ** -0.5
+    return w, [torch.randn((M, K), generator=g, device=device) for M in ms]
+
+
+def _tune_inputs(dev):
+    """Full-width mlp.up's B1 operands (a random net, seeded weights)."""
+    import torch
+    from repro_torch.configs.base import AnalogConfig
+    from repro_torch.configs.rram_ps32 import CASE_A
+    from repro_torch.core import conv4xbar
+    from repro_torch.core.analog import AnalogExecutor
+    from repro_torch.core.crossbar import build_conductance_plan
+    acfg = AnalogConfig(enabled=True, backend="emulator", layers=("mlp",))
+    aux = conv4xbar.blocklast_weights(rand_params(CASE_A, 0, 7, dev), CASE_A)
+    g = torch.Generator(device=dev)
+    g.manual_seed(1617)
+    K, N = GEMMA["d_model"], GEMMA["d_ff"]
+    plan = build_conductance_plan(
+        torch.randn((K, N), generator=g, device=dev) * K ** -0.5, acfg, CASE_A)
+    ex = AnalogExecutor(acfg, geom=CASE_A, emulator_params={})
+    out = {}
+    for M in TUNE_M:
+        x = torch.randn((M, K), generator=g, device=dev)
+        u = plan.tile_v(ex._drive01(x.abs() / x.abs().max()), 1.0).contiguous()
+        pos = plan.tile_v((x > 0).float(), 1.0).contiguous()
+        out[M] = (aux, plan.g_norm.contiguous(), u, pos)
+    return out
+
+
+_DISK_CHECK = r"""
+import json, sys
+sys.path.insert(0, SRC)
+import torch
+import chip_smoke
+from repro_torch.kernels import autotune
+from repro_torch.kernels.emulator_block.ops import emulator_block_unified
+dev = torch.device("cuda", 0)
+out = {}
+for M, (aux, gn, u, pos) in chip_smoke._tune_inputs(dev).items():
+    emulator_block_unified(aux, gn, u, pos)
+    out[M] = autotune.report()["emulator_unified"]
+print("REPORT " + json.dumps(out))
+"""
+
+
+def mesh_phase(dev, card, npz, unsharded, b1_shapes):
+    """Phase 16 (module docstring): returns B1's launches per mesh run,
+    the rows of the ``mesh`` JSON line, B1's largest error and the
+    tuner's record."""
+    import torch
+    from repro_torch.configs.base import AnalogConfig
+    from repro_torch.configs.rram_ps32 import CASE_A
+    from repro_torch.core.analog import AnalogExecutor
+    from repro_torch.interop import load_emulator_npz
+    from repro_torch.kernels import autotune
+    from repro_torch.kernels.emulator_block import emulator_block as eb
+    from repro_torch.kernels.emulator_block.emulator_block import (
+        default_block_m)
+    from repro_torch.kernels.emulator_block.ops import (block_m_candidates,
+                                                        emulator_block_unified)
+    from repro_torch.launch.mesh import launch
+    t_phase = time.perf_counter()
+    launches, rows, err = {}, [], 0.0
+
+    # -- (a) the ideal serve on three meshes -------------------------------
+    for m in MESH_SHAPES:
+        _, r = _mesh_serve(["--emulator-params", str(npz), "--mesh", m,
+                            "--mesh-times"], card, f"(a) --mesh {m}",
+                           want=unsharded)
+        launches[f"(a) {m}"] = sum(x["b1_launches"] for x in r)
+        rows += r
+
+    # -- (b) the row scheme, forced, at the q projection --------------------
+    ex = AnalogExecutor(AnalogConfig(enabled=True, backend="emulator",
+                                     layers=("attn",)), geom=CASE_A,
+                        emulator_params=load_emulator_npz(str(npz), dev))
+    w, xs = _row_inputs(dev, ROW_SITE, ROW_M)
+    want = [ex.matmul(x, w, "attn.q") for x in xs]
+    plan = ex._plan_for(w, "attn.q")
+    print(f"[mesh] (b) q projection K={plan.K} N={plan.N}: (NB, NO) = "
+          f"({plan.NB}, {plan.NO})", flush=True)
+    for tp in ROW_TPS:
+        res = launch(_row_rank, tp, device=dev, args=(dict(
+            npz=str(npz), site=ROW_SITE, m=ROW_M),))
+        for r, rr in enumerate(res):
+            if rr["launches"] != len(ROW_M) or rr["calls"] != len(ROW_M):
+                fail(f"[mesh] (b) tp={tp} rank {r}: {rr['launches']} B1 "
+                     f"launches for {len(ROW_M)} matmuls")
+            err = max(err, rr["err"])
+            for M, y, yw in zip(ROW_M, rr["ys"], want):
+                compare(f"row scheme tp={tp} rank {r} M={M} vs unsharded",
+                        torch.from_numpy(y), yw.cpu(), ROW_RTOL, ROW_ATOL)
+            print(f"[mesh] (b) tp={tp} rank {r}: B1 {rr['times']['b1']:.3f} ms "
+                  f"a call, all_reduce {rr['times']['all_reduce']:.3f} ms a "
+                  f"call (M = {', '.join(map(str, ROW_M))}) [{card}]",
+                  flush=True)
+            rows.append(dict(run=f"(b) row tp={tp}", mesh=[1, tp], rank=r,
+                             b1_launches=rr["launches"], b1_err=rr["err"],
+                             b1_ms=rr["times"]["b1"],
+                             all_reduce_ms=rr["times"]["all_reduce"]))
+        launches[f"(b) row 1,{tp}"] = sum(rr["launches"] for rr in res)
+    del ex, w, xs, want
+
+    # -- (c) a stressed, remapped deployment re-sharded on load --------------
+    dep = ROOT / "build" / "chip_smoke_mesh_dep.npz"
+    dep.unlink(missing_ok=True)
+    saved, r = _mesh_serve(["--emulator-params", str(npz), "--scenario",
+                            "stressed", "--fault-remap", "--state-save",
+                            str(dep), "--mesh", "1,2"], card,
+                           "(c) stressed, saved under --mesh 1,2")
+    launches["(c) save 1,2"] = sum(x["b1_launches"] for x in r)
+    rows += r
+    # the saved deployment served unsharded: the yardstick of both meshes
+    from repro_torch.launch import serve
+    n0 = eb.emulator_block_unified_cuda.launches
+    sess, out = serve.main(MESH_SERVE + ["--emulator-params", str(npz),
+                                         "--state-load", str(dep)])
+    launches["(c) load unsharded"] = eb.emulator_block_unified_cuda.launches - n0
+    loaded = {"tokens": out["tokens"], "logits": out["logits"],
+              "cache_bytes": sess.ex.cache_bytes()[1]}
+    del sess, out
+    if not ((saved["tokens"] == loaded["tokens"]).all()
+            and _bits_equal(saved["logits"], loaded["logits"])):
+        fail("[mesh] (c): the serve under --mesh 1,2 that saved the "
+             "deployment is not bit-equal to the deployment served unsharded")
+    print(f"[mesh] (c) the saved deployment served unsharded: tokens equal "
+          f"and logits bit-equal to the --mesh 1,2 serve that saved it; "
+          f"executor caches {loaded['cache_bytes'] / 1e6:.1f} MB [{card}]",
+          flush=True)
+    _, r = _mesh_serve(["--emulator-params", str(npz), "--state-load",
+                        str(dep), "--mesh", "2,2"], card,
+                       "(c) loaded under --mesh 2,2", want=loaded)
+    launches["(c) load 2,2"] = sum(x["b1_launches"] for x in r)
+    rows += r
+
+    # -- (d) the tuner on the card --------------------------------------------
+    os.environ["REPRO_AUTOTUNE"] = "1"
+    cache = ROOT / "build" / "chip_smoke_tuned.json"
+    cache.unlink(missing_ok=True)
+    os.environ["REPRO_AUTOTUNE_CACHE"] = str(cache)
+    autotune.clear()
+    tuner = {"rows": []}
+    n0 = eb.emulator_block_unified_cuda.launches
+    for M, (aux, gn, u, pos) in _tune_inputs(dev).items():
+        t0 = time.perf_counter()
+        y = emulator_block_unified(aux, gn, u, pos)
+        torch.cuda.synchronize()
+        sweep_s = time.perf_counter() - t0
+        rep = autotune.report()["emulator_unified"]
+        if rep["source"] != "swept":
+            fail(f"[tuner] mlp.up M={M}: the first resolution came from "
+                 f"{rep['source']}, not a sweep")
+        emulator_block_unified(aux, gn, u, pos)
+        if autotune.report()["emulator_unified"]["source"] != "memory":
+            fail(f"[tuner] mlp.up M={M}: the second resolution was no "
+                 "memory hit")
+        for bm in block_m_candidates(M):
+            if not torch.equal(eb.emulator_block_unified_cuda(
+                    aux, gn, u, pos, block_m=bm), y):
+                fail(f"[tuner] mlp.up M={M}: B1 under block_m={bm} is not "
+                     "bit-equal to the tuned call")
+        bound = next(b for b in b1_shapes if b["shape"].startswith("mlp.up")
+                     and b["shape"].endswith(f" M={M}"))
+        print(f"[tuner] mlp.up M={M}: swept block_m {rep['config']['block_m']}"
+              f" in {sweep_s:.2f} s; candidates "
+              + ", ".join(f"{json.loads(k)['block_m']}: {v:.3f} ms"
+                          for k, v in rep["ms"].items())
+              + f"; default {default_block_m(M)}; bound {bound['bound_ms']:.3f} ms "
+              f"({bound['bound_by']}); bit-equal under every tile [{card}]",
+              flush=True)
+        tuner["rows"].append(dict(shape=f"mlp.up M={M}", sweep_s=sweep_s,
+                                  block_m=rep["config"]["block_m"],
+                                  candidates_ms=rep["ms"],
+                                  bound_ms=bound["bound_ms"]))
+    tuner["launches"] = eb.emulator_block_unified_cuda.launches - n0
+    fresh = subprocess.run(
+        [sys.executable, "-c", f"SRC={str(ROOT / 'src')!r}\n" + _DISK_CHECK],
+        capture_output=True, text=True, timeout=300, cwd=str(ROOT))
+    if fresh.returncode != 0:
+        fail(f"[tuner] the fresh process failed: {fresh.stderr[-2000:]}")
+    reps = json.loads(next(line for line in fresh.stdout.splitlines()
+                           if line.startswith("REPORT "))[len("REPORT "):])
+    for M in TUNE_M:
+        got = reps[str(M)]
+        want_bm = next(r["block_m"] for r in tuner["rows"]
+                       if r["shape"] == f"mlp.up M={M}")
+        if got["source"] != "disk" or got["config"]["block_m"] != want_bm:
+            fail(f"[tuner] a fresh process resolved mlp.up M={M} to "
+                 f"{got}, not block_m {want_bm} from disk")
+        print(f"[tuner] a fresh process: mlp.up M={M} -> block_m "
+              f"{got['config']['block_m']} from {got['source']}", flush=True)
+    os.environ["REPRO_AUTOTUNE"] = "0"
+    secs = time.perf_counter() - t_phase
+    print(f"[mesh] phase 16 took {secs:.1f} s; B1 launches {launches}",
+          flush=True)
+    return dict(b1=launches, rows=rows, b1_err=err, tuner=tuner)
+
 
 
 def np_isfinite(a) -> bool:

@@ -42,8 +42,28 @@ state's read key (``nonideal.perturb.apply_read_noise`` on ``gf``, then
 per tag while the state stays the same (``_read_plan``), and a new state
 -- a new generate, or a calibration draw -- reads a new cycle.  At sigma
 0 the read is the identity up to clamping cells into [g_min, g_max].
-``DeploymentState.ideal()`` reproduces the plain path bit for bit.  The
-mesh-sharded forward is not ported yet (ROADMAP A11).
+``DeploymentState.ideal()`` reproduces the plain path bit for bit.
+
+Tensor-parallel serving (``AnalogExecutor(mesh=serve_mesh(dp, tp))``,
+``parallel.sharding``): one process a rank, each holding the full
+activations (the digital model runs replicated) and only its window of
+every plan's and state's tile lattice.  ``_sharded_matmul``, the one body
+of ``raw_matmul`` (off a mesh its rows and window are the whole and no
+collective runs), takes the drive scale of
+the whole call, splits the rows over ``data`` and evaluates its window --
+B1 on the local ``with_lattice`` view on the fast path, the generic
+backends on both rails as one batch otherwise -- then one ``all_reduce``
+over ``model`` completes the block-group sum: ``col`` writes the full NB
+reduction of its columns into negative zeros (bit-identical), ``row``
+shares each rank's partial sums and finishes the sum on every rank
+(bit-identical where each rank holds a power-of-two run of block groups,
+float tolerance otherwise).  Rows come back through an
+``all_reduce`` of negative-zero-filled outputs over ``data`` (gloo, which
+carries the ranks that share one card, reduces and broadcasts CUDA
+tensors but gathers none), and the remap gather runs on the full
+columns.  Read noise is mesh-invariant: a rank draws the whole field
+from the state's key and keeps its window.  The reference's GSPMD concat
+workaround answers a jax miscompilation and has no counterpart here.
 
 Many device states of one tag (a sweep's draws, a fleet's chunk of
 devices) run as one forward, ``raw_matmul_many``: the drive depends only
@@ -69,6 +89,7 @@ telemetry is on or off; ``RecompileSentinel(executor=...)`` watches
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import time
 import zlib
 from typing import Dict, Optional, Tuple
@@ -81,7 +102,8 @@ from repro_torch.core import conv4xbar
 from repro_torch.core.analytic import analytic_block_response
 from repro_torch.core.circuit import CircuitParams, block_response
 from repro_torch.core import prng
-from repro_torch.core.crossbar import ConductancePlan, build_conductance_plan
+from repro_torch.core.crossbar import (ConductancePlan, build_conductance_plan,
+                                       sum_block_groups)
 from repro_torch.core.deployment import Deployment, DeploymentState
 from repro_torch.core.emulator import normalize_features
 from repro_torch.kernels.emulator_block import (emulator_block_grid,
@@ -95,6 +117,12 @@ from repro_torch.nonideal.scenario import (Scenario, get_scenario,
                                            scenario_features,
                                            scenario_features_tiled)
 from repro_torch.obs import OBS
+from repro_torch.parallel.sharding import (MODEL_AXIS, DATA_AXIS,
+                                           gather_deployment_state,
+                                           keep_window, lattice_scheme,
+                                           lattice_window, local_lattice,
+                                           mesh_coords, mesh_shape,
+                                           shard_deployment_state)
 
 BACKENDS = ("digital", "emulator", "circuit", "analytic")
 
@@ -102,6 +130,16 @@ BACKENDS = ("digital", "emulator", "circuit", "analytic")
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def _field_draw(g: torch.Tensor, key, lattice: Tuple[int, int],
+                win: Optional[Tuple[slice, slice]]) -> torch.Tensor:
+    """One read cycle's draw for ``g``, a ``win`` window of a field over
+    the whole ``lattice`` (or the whole field for ``win=None``): the
+    whole field is drawn and the window kept, so the noise a tile reads
+    is the same on every mesh."""
+    eps = read_noise_draw(lattice + tuple(g.shape[2:]), key, g.device)
+    return eps if win is None else eps[win]
 
 
 def _same_weight(a: torch.Tensor, version: int, b: torch.Tensor) -> bool:
@@ -241,7 +279,13 @@ class AnalogExecutor:
     which the reference holds bit-equal to its fused rewrite.
     ``materialize_s[tag]`` records the host seconds the last
     materialization of the tag's device state took, and the remap's part
-    of them."""
+    of them.
+
+    ``mesh`` (``parallel.sharding.serve_mesh``) serves the analog plane
+    tensor-parallel; ``shard_scheme`` is ``"auto"`` (``lattice_scheme``),
+    or forces ``"col"``, ``"row"`` or ``"none"``.  ``mesh_times``, when a
+    dict, collects the synchronized milliseconds of each sharded call's
+    B1 launch (``"b1"``) and its collectives (``"all_reduce"``)."""
 
     def __init__(self, acfg: AnalogConfig, geom: BlockGeometry = CASE_A,
                  cp: Optional[CircuitParams] = None,
@@ -249,7 +293,8 @@ class AnalogExecutor:
                  calibration: Optional[Dict[str, tuple]] = None,
                  fast_path: bool = True,
                  scenario: Optional[Scenario] = None,
-                 scenario_key=None, fault_remap: bool = False):
+                 scenario_key=None, fault_remap: bool = False,
+                 mesh=None, shard_scheme: str = "auto"):
         if acfg.backend not in BACKENDS:
             raise ValueError(f"unknown analog backend {acfg.backend!r}")
         if acfg.backend == "emulator" and emulator_params is None:
@@ -276,6 +321,9 @@ class AnalogExecutor:
         self.builds: Dict[str, Dict[str, int]] = {"plan": {}, "state": {},
                                                   "read": {}}
         self.calls: Dict[str, int] = {}
+        self.mesh = mesh
+        self.shard_scheme = shard_scheme
+        self.mesh_times: Optional[Dict[str, list]] = None
         if scenario is None and acfg.scenario:
             scenario = get_scenario(acfg.scenario)
         self._deployment = Deployment(
@@ -406,17 +454,26 @@ class AnalogExecutor:
         ep = (self.emulator_params if self.acfg.backend == "emulator"
               else None)
         dev = plan.g_feat.device
+        win = self._window(plan)
         with torch.no_grad():
             if sc is None or sc.is_ideal:
+                # on a mesh the state's gf is the cached plan's window
                 st = DeploymentState.ideal(plan, eparams=ep)
+                if win is not None:
+                    st = self._in_window(st.replace(
+                        read_sigma=keep_window(st.read_sigma, win)
+                    ).known_noise(False), plan)
                 pplan = plan.with_perm(st.out_perm)
             else:
                 t0 = time.perf_counter()
                 key = self._tag_key(tag)
-                base, operm = plan, torch.arange(plan.N, device=dev)
+                # the draws and the remap cover the whole lattice (the
+                # draw is mesh-invariant); a rank keeps its window below
+                full = self._whole(plan, w)
+                base, operm = full, torch.arange(plan.N, device=dev)
                 if dep.remap and sc.has_stuck_off:
                     hz = dep.remap if isinstance(dep.remap, tuple) else None
-                    base, operm = remap_plan(plan, self.acfg, sc, key,
+                    base, operm = remap_plan(full, self.acfg, sc, key,
                                              horizon=hz)
                 _sync(dev)
                 t_remap = time.perf_counter() - t0
@@ -427,12 +484,19 @@ class AnalogExecutor:
                 sfeat = (self._scenario_features(dev)
                          if self.acfg.backend == "emulator"
                          and self.emulator_conditioned else None)
-                st = DeploymentState.ideal(plan, eparams=ep).replace(
+                st = DeploymentState.ideal(full, eparams=ep).replace(
                     gf=pplan.g_feat.float(),
                     read_sigma=rsig.expand(plan.NB, plan.NO).contiguous(),
                     out_perm=operm,
                     **({} if sfeat is None else {"sfeat": sfeat}))
                 st.known_noise(sc.has_read_noise)
+                if win is not None:
+                    # this rank's window of the state, and of the
+                    # perturbed plan (sharing the state's gf)
+                    st = self.shard_state(st)
+                    pplan = dataclasses.replace(
+                        pplan, g_feat=st.gf,
+                        g_norm=keep_window(pplan.g_norm, win))
                 _sync(dev)
                 self.materialize_s[tag] = (time.perf_counter() - t0, t_remap)
         ent = (plan, dep, st, pplan)
@@ -455,13 +519,13 @@ class AnalogExecutor:
         states (``deploy(states=...)``) are served verbatim."""
         dep = self._deployment
         if dep.states is not None and tag in dep.states:
-            return dep.states[tag]
+            return self.shard_state(dep.states[tag])
         st = self._base_state(tag, w)
         a, b = self.calibration.get(tag, (1.0, 0.0))
         st = st.with_calibration(a, b)
         if dep.scenario is not None and dep.scenario.has_read_noise:
             st = st.with_read_key(self._next_read_key())
-        return st
+        return self.shard_state(st)
 
     def _read(self, st: DeploymentState) -> torch.Tensor:
         """One read cycle of the state's conductances: the read-noise draw
@@ -473,7 +537,13 @@ class AnalogExecutor:
         if not st.has_read_noise:
             return torch.where(g > 0.0, torch.clamp(g, self.acfg.g_min,
                                                     self.acfg.g_max), g)
-        eps = read_noise_draw(g.shape, st.read_key, g.device)
+        lat = st.window
+        if lat is None:
+            eps = _field_draw(g, st.read_key, tuple(g.shape[:2]), None)
+        else:
+            scheme, tp, t, nb, no = lat
+            eps = _field_draw(g, st.read_key, (nb, no),
+                              lattice_window(nb, no, tp, scheme, t))
         return apply_read_noise(g, self.acfg, st.read_sigma, eps)
 
     def _read_plan(self, w: torch.Tensor, tag: str,
@@ -496,6 +566,191 @@ class AnalogExecutor:
         if tag:
             self._read_cache[tag] = (plan, st, rplan)
         return rplan
+
+    # ------------------------------------------------------------------ #
+    # Tensor-parallel serving
+    # ------------------------------------------------------------------ #
+    def _scheme_for(self, nb: int, no: int) -> Optional[str]:
+        """Lattice-sharding scheme of a (NB, NO) plan on this executor's
+        mesh: ``"auto"`` defers to ``lattice_scheme`` (col preferred); a
+        forced scheme must divide the axis it shards."""
+        _, tp = mesh_shape(self.mesh)
+        if tp <= 1:
+            return None
+        if self.shard_scheme == "auto":
+            return lattice_scheme(nb, no, tp)
+        s = None if self.shard_scheme == "none" else self.shard_scheme
+        if s not in (None, "row", "col"):
+            raise ValueError(f"shard_scheme={self.shard_scheme!r} "
+                             "(expected 'auto', 'row', 'col' or 'none')")
+        if s == "col" and no % tp:
+            raise ValueError(
+                f"shard_scheme='col' needs NO % tp == 0 (NO={no}, tp={tp})")
+        if s == "row" and nb % tp:
+            raise ValueError(
+                f"shard_scheme='row' needs NB % tp == 0 (NB={nb}, tp={tp})")
+        return s
+
+    def _window(self, plan: ConductancePlan) -> Optional[Tuple[slice, slice]]:
+        """This rank's window of ``plan``'s lattice; None off a mesh or
+        where the lattice replicates."""
+        if self.mesh is None:
+            return None
+        scheme = self._scheme_for(plan.NB, plan.NO)
+        if scheme is None:
+            return None
+        _, tp = mesh_shape(self.mesh)
+        _, t = mesh_coords(self.mesh)
+        return lattice_window(plan.NB, plan.NO, tp, scheme, t)
+
+    def _in_window(self, st: DeploymentState,
+                   plan: ConductancePlan) -> DeploymentState:
+        """Mark ``st``, whose lattice fields already hold this rank's
+        window of ``plan``'s lattice, as ``shard_state`` would."""
+        _, tp = mesh_shape(self.mesh)
+        _, t = mesh_coords(self.mesh)
+        return st.in_window((self._scheme_for(plan.NB, plan.NO), tp, t,
+                             plan.NB, plan.NO))
+
+    def _whole(self, plan: ConductancePlan, w: torch.Tensor
+               ) -> ConductancePlan:
+        """The whole lattice's plan of a cached one: the plan itself, or,
+        where a rank caches only its window, the weight tiled anew (kept
+        only while a corner is drawn or a fleet resolves its base)."""
+        if self._window(plan) is None:
+            return plan
+        with torch.no_grad():
+            return build_conductance_plan(w.detach(), self.acfg, self.geom)
+
+    def shard_state(self, st: DeploymentState) -> DeploymentState:
+        """This rank's window of a state's lattice fields on the serving
+        mesh (the state itself without one).  Idempotent, and a state
+        loaded from an npz -- saved under any mesh shape, or none -- is
+        sliced anew."""
+        if self.mesh is None:
+            return st
+        lat = st.window
+        nb, no = lat[3:] if lat is not None else tuple(st.gf.shape[:2])
+        return shard_deployment_state(st, self.mesh,
+                                      self._scheme_for(int(nb), int(no)))
+
+    def shard_states(self, states: Dict[str, DeploymentState]
+                     ) -> Dict[str, DeploymentState]:
+        """``shard_state`` over a per-site state dict."""
+        return {k: self.shard_state(v) for k, v in states.items()}
+
+    def gather_states(self, states: Dict[str, DeploymentState]
+                      ) -> Dict[str, DeploymentState]:
+        """The full states of windowed ones (every rank of the model axis
+        calls it): what ``save_deployment`` writes under a mesh."""
+        if self.mesh is None:
+            return states
+        return {k: gather_deployment_state(v, self.mesh)
+                for k, v in states.items()}
+
+    @contextlib.contextmanager
+    def _timed(self, name: str, device: torch.device):
+        """Synchronized milliseconds of the block into ``mesh_times``."""
+        if self.mesh_times is None:
+            yield
+            return
+        _sync(device)
+        t0 = time.perf_counter()
+        yield
+        _sync(device)
+        self.mesh_times.setdefault(name, []).append(
+            (time.perf_counter() - t0) * 1e3)
+
+    def _sharded_matmul(self, x2d: torch.Tensor, x_scale: torch.Tensor,
+                        plan: ConductancePlan, eparams: Optional[dict],
+                        sfeat: Optional[torch.Tensor]) -> torch.Tensor:
+        """``raw_matmul``'s body, on a (data, model) mesh or none: this
+        rank's rows of ``x2d`` (zero rows pad the batch to a multiple of
+        dp) on its window of the lattice, then the collectives.  Without
+        a mesh the rows and the window are the whole and no collective
+        runs.  ``plan`` holds the whole lattice's geometry; its fields may
+        hold the whole lattice (sliced here) or this rank's window
+        already (a cached plan or a sharded state's read plan).  The drive
+        scale ``x_scale`` is the whole call's.  B1's tile is tuned off a
+        mesh only: a rank's window is a shape the tuner never measured.
+        Returns the volts (B, N), output permutation applied."""
+        mesh = self.mesh
+        dp, tp = mesh_shape(mesh)
+        d, t = mesh_coords(mesh)
+        scheme = self._scheme_for(plan.NB, plan.NO)
+        nb_l, no_l = local_lattice(plan.NB, plan.NO, tp, scheme)
+        win = lattice_window(plan.NB, plan.NO, tp, scheme, t)
+        lp = plan                   # the lattice this rank evaluates
+        if (nb_l, no_l) != (plan.NB, plan.NO):
+            gf, gn = plan.g_feat, plan.g_norm
+            if tuple(gf.shape[:2]) != (nb_l, no_l):
+                gf, gn = gf[win], gn[win]
+            lp = plan.with_lattice(gf.contiguous(), self.acfg, NB=nb_l,
+                                   NO=no_l, g_norm=gn.contiguous())
+        if sfeat is not None and sfeat.dim() == 3 \
+                and tuple(sfeat.shape[:2]) != (nb_l, no_l):
+            sfeat = sfeat[win]
+        B, dev = x2d.shape[0], x2d.device
+        rl = -(-B // dp)
+        xl = x2d[d * rl:(d + 1) * rl]
+        if xl.shape[0] < rl:
+            xl = torch.cat([xl, xl.new_zeros((rl - xl.shape[0], xl.shape[1]))])
+        if self.acfg.backend == "emulator" and self.fast_path:
+            u = plan.tile_v(self._drive01(torch.abs(xl) / x_scale), 1.0)
+            pos = plan.tile_v((xl > 0).float(), 1.0)
+            with self._timed("b1", dev):
+                outs = self._b1(lp.g_norm, u[:, win[0]], pos[:, win[0]],
+                                eparams, sfeat, tune=mesh is None)
+            outs = outs.reshape(-1, outs.shape[-1])     # rails stacked
+        else:
+            rails = torch.cat([torch.clamp_min(xl, 0.0),
+                               torch.clamp_min(-xl, 0.0)], dim=0)
+            vb01 = plan.tile_v(self._drive01(rails / x_scale), 1.0)[:, win[0]]
+            outs = self._eval_blocks(lp, vb01.float(), eparams, sfeat)
+        # (rail, row, this rank's columns), its block groups summed: each
+        # column in the same order whatever the rows (``sum_block_groups``)
+        s = lp.group_sum(outs).reshape(2, rl, -1)
+        if mesh is None:
+            y = s[0] - s[1]
+        else:
+            y = self._collect(s, plan, scheme, B, rl, no_l)
+        if plan.out_perm is not None:
+            return torch.index_select(y, 1, plan.out_perm)
+        return y[:, :plan.N]
+
+    def _collect(self, s, plan: ConductancePlan, scheme: Optional[str],
+                 B: int, rl: int, no_l: int) -> torch.Tensor:
+        """The mesh's collectives on this rank's rail sums ``s``: the
+        whole block-group sum of every column over ``model``, then every
+        row over ``data`` -> the (B, NO*no) volts."""
+        import torch.distributed as dist
+        mesh, dev = self.mesh, s[0].device
+        dp, tp = mesh_shape(mesh)
+        d, t = mesh_coords(mesh)
+        cols = plan.NO * plan.no
+        with self._timed("all_reduce", dev):
+            if scheme == "col":
+                # -0.0 is the sum's identity: x + -0.0 is x, bit for bit
+                y = torch.full((rl, cols), -0.0, device=dev)
+                a = t * no_l * plan.no
+                y[:, a:a + no_l * plan.no] = s[0] - s[1]
+                dist.all_reduce(y, group=mesh.get_group(MODEL_AXIS))
+            elif scheme == "row":
+                # every rank's partial sums, then the tree's last levels
+                # here: the bits of the whole sum when each rank holds a
+                # power-of-two run of block groups (``sum_block_groups``)
+                parts = torch.full((2, rl, tp, cols), -0.0, device=dev)
+                parts[:, :, t] = s
+                dist.all_reduce(parts, group=mesh.get_group(MODEL_AXIS))
+                y = sum_block_groups(parts[0]) - sum_block_groups(parts[1])
+            else:
+                y = s[0] - s[1]
+            if dp > 1:
+                rows = torch.full((rl * dp, cols), -0.0, device=dev)
+                rows[d * rl:(d + 1) * rl] = y
+                dist.all_reduce(rows, group=mesh.get_group(DATA_AXIS))
+                y = rows[:B]
+        return y
 
     def _cp_effective(self) -> CircuitParams:
         """CircuitParams with the scenario's line-resistance scaling."""
@@ -586,7 +841,9 @@ class AnalogExecutor:
         """Tile/pad/interleave once per bound weight; rebuilt when the tag
         is rebound to a different tensor or the weight was updated in
         place (another view of the same elements at the same version is
-        the same weight, ``_same_weight``)."""
+        the same weight, ``_same_weight``).  Where a mesh shards the
+        tag's lattice, the cached plan holds only this rank's window of
+        ``g_feat`` / ``g_norm`` (``_whole`` tiles the whole one again)."""
         ent = self._plans.get(tag) if tag else None
         if ent is not None and _same_weight(ent[0], ent[1], w):
             if OBS.enabled:
@@ -604,9 +861,36 @@ class AnalogExecutor:
                         "tiles the weight anew", tag=tag or "<anon>").inc()
         with torch.no_grad():
             plan = build_conductance_plan(w.detach(), self.acfg, self.geom)
+            win = self._window(plan)
+            if win is not None:
+                # a rank keeps its window of the lattice (the geometry
+                # stays the whole plan's)
+                plan = dataclasses.replace(
+                    plan, g_feat=keep_window(plan.g_feat, win),
+                    g_norm=keep_window(plan.g_norm, win))
         if tag:
             self._plans[tag] = (w, w._version, plan)
         return plan
+
+    def cache_bytes(self) -> Tuple[int, int]:
+        """(bytes of the cached conductance plans, bytes of every tensor
+        the plan, state and read-plan caches hold), each storage once."""
+        seen, plans, total = set(), 0, 0
+        caches = ((self._plans, lambda e: (e[2].g_feat, e[2].g_norm)),
+                  (self._state_cache, lambda e: (e[2].gf, e[3].g_feat,
+                                                 e[3].g_norm)),
+                  (self._read_cache, lambda e: (e[2].g_feat, e[2].g_norm)))
+        for i, (cache, tensors) in enumerate(caches):
+            for ent in cache.values():
+                for t in tensors(ent):
+                    key = t.untyped_storage().data_ptr()
+                    if key in seen:
+                        continue
+                    seen.add(key)
+                    n = t.untyped_storage().nbytes()
+                    total += n
+                    plans += n if i == 0 else 0
+        return plans, total
 
     def _count_build(self, kind: str, tag: str) -> None:
         per_tag = self.builds[kind]
@@ -703,22 +987,27 @@ class AnalogExecutor:
         x = plan.build_x(vb01 * self.acfg.v_read)
         return self.block_outputs(x.float(), eparams, sfeat)
 
-    def _unified(self, plan: ConductancePlan, g_norm: torch.Tensor,
-                 x2d: torch.Tensor, x_scale: torch.Tensor,
-                 eparams: Optional[dict], sfeat: Optional[torch.Tensor]
-                 ) -> torch.Tensor:
-        """The fast path's B1 call: both rails of every (row, block) of
-        ``g_norm`` on the plan's drive of ``x2d``, with a conditioned net's
-        fc0 shift (``fc0_shift``) -> (2, M*blocks, O)."""
+    def _b1(self, g_norm: torch.Tensor, u: torch.Tensor, pos: torch.Tensor,
+            eparams: Optional[dict], sfeat: Optional[torch.Tensor],
+            tune: bool = True) -> torch.Tensor:
+        """B1 on both rails of every (row, block) of ``g_norm``, with a
+        conditioned net's fc0 shift (``fc0_shift``) -> (2, M*blocks, O)."""
         aux = self._blocklast_aux(eparams)
         shift = None
         if sfeat is not None and "f0_scen" in aux:
             shift = fc0_shift(sfeat, aux["f0_scen"])
-        u = plan.tile_v(self._drive01(torch.abs(x2d) / x_scale), 1.0)
-        pos = plan.tile_v((x2d > 0).float(), 1.0)
         return emulator_block_unified(aux, g_norm.contiguous(),
                                       u.contiguous(), pos.contiguous(),
-                                      shift=shift)
+                                      shift=shift, tune=tune)
+
+    def _unified(self, plan: ConductancePlan, g_norm: torch.Tensor,
+                 x2d: torch.Tensor, x_scale: torch.Tensor,
+                 eparams: Optional[dict], sfeat: Optional[torch.Tensor]
+                 ) -> torch.Tensor:
+        """The fast path's B1 call on the plan's drive of ``x2d``."""
+        u = plan.tile_v(self._drive01(torch.abs(x2d) / x_scale), 1.0)
+        pos = plan.tile_v((x2d > 0).float(), 1.0)
+        return self._b1(g_norm, u, pos, eparams, sfeat)
 
     def raw_matmul(self, x2d: torch.Tensor, w: torch.Tensor, tag: str = "",
                    plan: Optional[ConductancePlan] = None,
@@ -752,22 +1041,19 @@ class AnalogExecutor:
                     sfeat = self._scenario_features(plan.g_feat.device)
         if read_key is not None:
             g = plan.g_feat.float()
-            eps = read_noise_draw(g.shape, read_key, g.device)
-            plan = plan.with_g(apply_read_noise(
-                g, self.acfg, 0.0 if read_sigma is None else read_sigma,
-                eps), self.acfg)
-        B = x2d.shape[0]
+            rs = 0.0 if read_sigma is None else read_sigma
+            win = (None if tuple(g.shape[:2]) == (plan.NB, plan.NO)
+                   else self._window(plan))
+            eps = _field_draw(g, read_key, (plan.NB, plan.NO), win)
+            if win is not None and isinstance(rs, torch.Tensor) \
+                    and rs.dim() == 2:
+                rs = rs[win]
+            plan = plan.with_g(apply_read_noise(g, self.acfg, rs, eps),
+                               self.acfg)
         x2d = x2d.float()
         x_scale = torch.clamp_min(torch.max(torch.abs(x2d)), 1e-9)
-        if self.acfg.backend == "emulator" and self.fast_path:
-            y2 = self._unified(plan, plan.g_norm, x2d, x_scale, eparams,
-                               sfeat)
-            return plan.assemble(y2[0]) - plan.assemble(y2[1]), x_scale
-        rails = torch.cat([torch.clamp_min(x2d, 0.0),
-                           torch.clamp_min(-x2d, 0.0)], dim=0)
-        vb01 = plan.tile_v(self._drive01(rails / x_scale), 1.0)  # (2B,NB,D,H)
-        y = plan.assemble(self._eval_blocks(plan, vb01.float(), eparams, sfeat))
-        return y[:B] - y[B:], x_scale
+        return self._sharded_matmul(x2d, x_scale, plan, eparams,
+                                    sfeat), x_scale
 
     def raw_matmul_many(self, x2d: torch.Tensor, w: torch.Tensor, tag: str,
                         g_read: torch.Tensor,
@@ -810,13 +1096,10 @@ class AnalogExecutor:
     def _assemble_many(plan: ConductancePlan, outs: torch.Tensor,
                        C: int) -> torch.Tensor:
         """(M*NB*C*NO, no) block outputs of C stacked states -> (C, M, N),
-        block groups added one after another."""
+        block groups summed in ``plan.assemble``'s order."""
         M = outs.shape[0] // (plan.NB * C * plan.NO)
         y = outs.reshape(M, plan.NB, C, plan.NO * plan.no)[..., :plan.N]
-        acc = y[:, 0]
-        for b in range(1, plan.NB):
-            acc = acc + y[:, b]
-        return acc.transpose(0, 1)
+        return sum_block_groups(y).transpose(0, 1)
 
     def matmul(self, x: torch.Tensor, w: torch.Tensor, tag: str = "",
                state: Optional[DeploymentState] = None) -> torch.Tensor:

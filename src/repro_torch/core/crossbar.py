@@ -119,15 +119,19 @@ class ConductancePlan:
 
     def with_lattice(self, g_feat: torch.Tensor, acfg: AnalogConfig, *,
                      NB: Optional[int] = None,
-                     NO: Optional[int] = None) -> "ConductancePlan":
+                     NO: Optional[int] = None,
+                     g_norm: Optional[torch.Tensor] = None
+                     ) -> "ConductancePlan":
         """A local view of this plan over a slice of the tile lattice:
         the same geometry, a reduced block-group (NB) and/or output-group
-        (NO) count and the matching ``g_feat`` slice; the output
+        (NO) count and the matching ``g_feat`` slice (``g_norm``, when
+        given, is its normalization, else derived); the output
         permutation is dropped (the remap gather runs on full outputs)."""
         return dataclasses.replace(
             self, NB=self.NB if NB is None else NB,
-            NO=self.NO if NO is None else NO,
-            g_feat=g_feat, g_norm=normalize_g(g_feat, acfg), out_perm=None)
+            NO=self.NO if NO is None else NO, g_feat=g_feat,
+            g_norm=normalize_g(g_feat, acfg) if g_norm is None else g_norm,
+            out_perm=None)
 
     def with_g(self, g_feat: torch.Tensor, acfg: AnalogConfig
                ) -> "ConductancePlan":
@@ -158,14 +162,35 @@ class ConductancePlan:
         x = torch.stack([v, g], dim=3)                # (M, NB, NO, 2, D, H, W)
         return x.reshape(M * self.n_blocks, 2, self.D, self.rows, 2 * self.no)
 
+    def group_sum(self, outs: torch.Tensor) -> torch.Tensor:
+        """(M*NB*NO, no) block outputs -> (M, NO*no): each physical
+        column summed over its NB block groups (``sum_block_groups``)."""
+        M = outs.shape[0] // self.n_blocks
+        return sum_block_groups(outs.reshape(M, self.NB, self.NO * self.no))
+
     def assemble(self, outs: torch.Tensor) -> torch.Tensor:
         """(M*NB*NO, no) block outputs -> (M, N) digital block-group sum."""
-        M = outs.shape[0] // self.n_blocks
+        y = self.group_sum(outs)
         if self.out_perm is None:
-            y = outs.reshape(M, self.NB, self.NO * self.no)[:, :, :self.N]
-            return y.sum(dim=1)
-        y = outs.reshape(M, self.NB, self.NO * self.no).sum(dim=1)
+            return y[:, :self.N]
         return torch.index_select(y, 1, self.out_perm)
+
+
+def sum_block_groups(y: torch.Tensor) -> torch.Tensor:
+    """Sum ``y`` over axis 1 (the block groups) in a fixed order: adjacent
+    groups added in pairs, level by level, an odd last one carried, so
+    every partial sum covers a contiguous run of groups.  Each column is
+    summed in the same order whatever the tensor's other extents, which
+    ``torch.sum`` does not promise (its split follows the shape): a
+    column window, a tensor-parallel rank's share, sums to the bits it
+    has in the whole.  And a run of 2^k groups starting at a multiple of
+    2^k is one node of the tree: a rank holding such a run of block
+    groups sums it to the node's bits."""
+    while y.shape[1] > 1:
+        n = y.shape[1]
+        pairs = y[:, 0:n - 1:2] + y[:, 1:n:2]
+        y = torch.cat([pairs, y[:, n - 1:]], dim=1) if n % 2 else pairs
+    return y[:, 0]
 
 
 def build_conductance_plan(w: torch.Tensor, acfg: AnalogConfig,

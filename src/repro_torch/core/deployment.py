@@ -93,13 +93,28 @@ class DeploymentState:
             object.__setattr__(self, "_has_read_noise", c)
         return c
 
+    @property
+    def window(self) -> Optional[tuple]:
+        """``(scheme, tp, index, NB, NO)`` when ``gf`` and ``read_sigma``
+        hold one tensor-parallel rank's window of an (NB, NO) lattice
+        (``parallel.sharding``), else None: the state is whole."""
+        return self.__dict__.get("_window")
+
+    def in_window(self, window: tuple) -> "DeploymentState":
+        """Record that the lattice fields hold ``window`` (see ``window``)."""
+        object.__setattr__(self, "_window", tuple(window))
+        return self
+
     def replace(self, **kw) -> "DeploymentState":
         """Immutable field update; keeps the read-noise flag unless
-        ``read_sigma`` changes."""
+        ``read_sigma`` changes, and the window unless ``gf`` or
+        ``read_sigma`` does."""
         new = dataclasses.replace(self, **kw)
         c = self.__dict__.get("_has_read_noise")
         if c is not None and "read_sigma" not in kw:
             new.known_noise(c)
+        if self.window is not None and not {"gf", "read_sigma"} & set(kw):
+            new.in_window(self.window)
         return new
 
     def with_read_key(self, key) -> "DeploymentState":
@@ -194,6 +209,11 @@ def save_deployment(path: str, states: Dict[str, DeploymentState],
     arrs: Dict[str, np.ndarray] = {}
     eparams: Dict[str, torch.Tensor] = {}
     for tag, st in states.items():
+        if st.window is not None:
+            raise ValueError(
+                f"save_deployment: the state of {tag!r} holds one rank's "
+                "window of its lattice; gather it first "
+                "(AnalogExecutor.gather_states)")
         for f in _STATE_FIELDS:
             if f == "eparams":
                 if st.eparams:
@@ -245,10 +265,18 @@ def states_from_numpy(data: Dict[str, np.ndarray],
     return states, dep.replace(states=states)
 
 
-def load_deployment(path: str, device: DeviceLike = None
+def load_deployment(path: str, device: DeviceLike = None, executor=None
                     ) -> Tuple[Dict[str, DeploymentState], Deployment]:
     """Inverse of ``save_deployment`` (a file either package wrote):
     ``(states, deployment)`` on ``device``, the states attached to the
-    returned spec."""
+    returned spec.  With ``executor`` (an ``AnalogExecutor``) on a
+    serving mesh, each state keeps this rank's window of its lattice
+    (``executor.shard_states``): the npz holds values, not placements, so
+    a deployment saved under one mesh shape loads onto any other."""
     with np.load(path, allow_pickle=False) as data:
-        return states_from_numpy({k: data[k] for k in data.files}, device)
+        states, dep = states_from_numpy({k: data[k] for k in data.files},
+                                        device)
+    if executor is not None:
+        states = executor.shard_states(states)
+        dep = dep.replace(states=states)
+    return states, dep

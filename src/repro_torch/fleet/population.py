@@ -129,7 +129,7 @@ class Fleet:
         lattice and the emulator params, resolved once."""
         if self._resolved is None:
             ex = self.ex
-            plan = ex._plan_for(self.w, self.tag)
+            plan = ex._whole(ex._plan_for(self.w, self.tag), self.w)
             dev = plan.g_feat.device
             lat = (plan.NB, plan.NO)
             self._resolved = {

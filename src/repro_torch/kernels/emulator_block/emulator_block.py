@@ -107,9 +107,10 @@ def _check(name: str, t: torch.Tensor, shape, device) -> None:
 
 
 def default_block_m(M: int) -> int:
-    """Fixed row-tile heuristic (the autotuner is ROADMAP A4): one tile
-    covers up to 128 rows, so the kernel folds each block's precompute
-    once per call for decode and prefill batches alike."""
+    """The row tile where the autotuner does not sweep (the reference's
+    heuristic default): one tile covers up to 128 rows, so the kernel
+    folds each block's precompute once per call for decode and prefill
+    batches alike."""
     return min(M, 128)
 
 

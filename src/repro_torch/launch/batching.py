@@ -293,9 +293,11 @@ class ContinuousBatchEngine:
         """Re-materialize the per-site ``DeploymentState``s from the
         session's executor (call after ``ex.deploy(...)`` mid-run: the
         swap applies from the next tick), or install ``states`` (e.g.
-        from ``load_deployment``)."""
+        from ``load_deployment``), each kept to this rank's window of its
+        lattice on the executor's serving mesh (``ex.shard_states``)."""
         if states is not None:
-            self._states = states
+            ex = self.session.ex
+            self._states = ex.shard_states(states) if ex is not None else states
         else:
             self._states = (self.session.states()
                             if self.session.ex is not None else {})

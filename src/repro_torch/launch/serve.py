@@ -46,10 +46,26 @@ call site (keys ``"<tag>#<ordinal>"`` for tail layers and
 reference) and serves each site with its ``DeploymentState``.
 ``--telemetry [PATH]`` enables ``repro_torch.obs.OBS`` for the run and
 writes its JSON snapshot to PATH (stdout for ``-`` or no PATH), the
-generate watched by a ``RecompileSentinel``.  The reference's mesh and
-device-count flags raise ``NotImplementedError`` naming their ROADMAP
-item.  Many requests with their own lengths and arrivals are served one
-level up, by ``launch.batching``.
+generate watched by a ``RecompileSentinel``.
+
+Tensor-parallel analog serving (``parallel.sharding``):
+
+  python -m repro_torch.launch.serve --arch gemma3-1b --layers 2 \
+      --analog-backend emulator --emulator-params emulator.npz --mesh 2,2
+
+starts ``DP*TP`` ranks (``--devices``, which must equal it, by default;
+``launch.mesh.launch``), each serving the whole digital model and its
+window of every analog state on a ``(data, model)`` mesh; rank 0 prints
+the tokens and timings.  ``--device cpu`` runs the ranks on the CPU.
+``--mesh-times`` has each rank generate once more with the sharded
+forward's B1 launches and collectives synchronized and timed, and print
+their milliseconds a call.  ``main`` then returns ``(None, out)``, rank
+0's output with each rank's figures under ``out["ranks"]``: among them
+its states' ``gf`` bytes, every byte its executor caches
+(``AnalogExecutor.cache_bytes``) and, on the card, its peak allocation
+and what stays allocated after the generate.  Many
+requests with their own lengths and arrivals are served one level up, by
+``launch.batching``.
 """
 from __future__ import annotations
 
@@ -344,8 +360,6 @@ class ServeSession:
 # --------------------------------------------------------------------------- #
 # CLI
 # --------------------------------------------------------------------------- #
-_NOT_PORTED = {"mesh": "A11", "devices": "A11"}
-
 
 def build_parser() -> argparse.ArgumentParser:
     from repro_torch.configs import ARCH_NAMES
@@ -398,23 +412,37 @@ def build_parser() -> argparse.ArgumentParser:
                     help="enable the metrics registry for this run and write "
                          "its JSON snapshot on exit -- to PATH, or to stdout "
                          "when the flag is given bare or as '-'")
-    # reference flags whose subsystems are not ported yet
-    ap.add_argument("--mesh", default=None)
-    ap.add_argument("--devices", type=int, default=0)
+    ap.add_argument("--mesh", default=None, metavar="DP,TP",
+                    help="serve the analog plane tensor-parallel on a "
+                         "(data, model) mesh of DP*TP ranks: each rank keeps "
+                         "its window of every state's tile lattice and one "
+                         "all_reduce completes each analog matmul; needs a "
+                         "non-digital --analog-backend")
+    ap.add_argument("--devices", type=int, default=0,
+                    help="ranks to start for --mesh (must be DP*TP, its "
+                         "default)")
+    ap.add_argument("--mesh-times", action="store_true",
+                    help="with --mesh: generate once more per rank with B1 "
+                         "and the collectives timed (synchronized)")
     return ap
 
 
+def _mesh_shape(ap, args):
+    try:
+        dp, tp = (int(v) for v in args.mesh.split(","))
+    except ValueError:
+        ap.error(f"--mesh expects DP,TP (got {args.mesh!r})")
+    if dp < 1 or tp < 1:
+        ap.error(f"--mesh expects positive DP,TP (got {args.mesh!r})")
+    return dp, tp
+
+
 def main(argv: Optional[List[str]] = None):
-    """Parse ``argv``, serve, print the timings; returns (session, output)."""
+    """Parse ``argv``, serve, print the timings; returns (session, output),
+    or ``(None, output)`` under ``--mesh`` (rank 0's output, each rank's
+    figures under ``"ranks"``)."""
     ap = build_parser()
     args = ap.parse_args(argv)
-    for flag, item in _NOT_PORTED.items():
-        if getattr(args, flag) not in (None, False, 0):
-            raise NotImplementedError(
-                f"--{flag.replace('_', '-')} is not ported yet "
-                f"(ROADMAP {item})")
-    if args.telemetry is not None:
-        OBS.enable()
     if args.scenario and args.analog_backend == "digital":
         ap.error("--scenario requires a non-digital --analog-backend")
     if (args.fault_remap or args.age is not None) and not args.scenario:
@@ -425,6 +453,79 @@ def main(argv: Optional[List[str]] = None):
             and args.analog_backend == "digital":
         ap.error("--state-save/--state-load require a non-digital "
                  "--analog-backend")
+    if args.mesh is None:
+        if args.devices > 1:
+            ap.error("--devices starts the ranks of --mesh DP,TP")
+        if args.mesh_times:
+            ap.error("--mesh-times requires --mesh")
+        return _serve(args)
+    if args.analog_backend == "digital":
+        ap.error("--mesh shards the analog plane and requires a "
+                 "non-digital --analog-backend")
+    dp, tp = _mesh_shape(ap, args)
+    if args.devices not in (0, dp * tp):
+        ap.error(f"--devices {args.devices} != DP*TP = {dp * tp}")
+    from repro_torch.launch.mesh import launch
+    ranks = launch(_serve_rank, dp * tp, args=(args,), device=args.device)
+    out = dict(ranks[0]["out"])
+    out["ranks"] = [r["stats"] for r in ranks]
+    return None, out
+
+
+def _serve_rank(rank: int, world: int, device: torch.device, args):
+    """One rank of ``serve --mesh``: the serve on this rank's device and
+    window, and its figures."""
+    import numpy as np
+    from repro_torch.launch.mesh import make_serve_mesh
+    from repro_torch.parallel.sharding import mesh_coords
+    dp, tp = (int(v) for v in args.mesh.split(","))
+    mesh = make_serve_mesh(dp, tp, device)
+    if rank == 0:
+        print(f"serving mesh: (data, model) = ({dp}, {tp})", flush=True)
+    args.device = str(device)
+    eb = None
+    if device.type == "cuda":
+        from repro_torch.kernels.emulator_block import emulator_block as eb
+        eb.emulator_block_unified_cuda.launches = 0
+    sess, out = _serve(args, mesh=mesh, verbose=rank == 0)
+    gf = full = 0       # this rank's gf bytes, the whole lattice's
+    for st in (sess._last_states or {}).values():
+        lat = st.window
+        cell = st.gf.element_size() * int(np.prod(st.gf.shape[2:]))
+        gf += cell * int(np.prod(st.gf.shape[:2]))
+        full += cell * int(np.prod(lat[3:] if lat else st.gf.shape[:2]))
+    G = args.gen
+    stats = {"rank": rank, "coords": mesh_coords(mesh),
+             "b1_launches": (eb.emulator_block_unified_cuda.launches
+                             if eb is not None else 0),
+             "gf_bytes": gf, "full_gf_bytes": full,
+             "cache_bytes": sess.ex.cache_bytes()[1],
+             "peak_bytes": (torch.cuda.max_memory_allocated(device)
+                            if device.type == "cuda" else 0),
+             "resident_bytes": (torch.cuda.memory_allocated(device)
+                                if device.type == "cuda" else 0),
+             "prefill_ms": out["prefill_s"] * 1e3,
+             "decode_ms_step": out["decode_s"] * 1e3 / max(G - 1, 1)}
+    if args.mesh_times:
+        sess.ex.mesh_times = {}
+        sess.generate(states=sess._last_states)
+        for k, v in sess.ex.mesh_times.items():
+            stats[f"{k}_ms"] = sum(v) / len(v)
+            stats[f"{k}_calls"] = len(v)
+        sess.ex.mesh_times = None
+    print(f"rank {rank} {stats['coords']}: " + ", ".join(
+        f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}"
+        for k, v in stats.items() if k not in ("rank", "coords")),
+        flush=True)
+    return {"out": out if rank == 0 else None, "stats": stats}
+
+
+def _serve(args, mesh=None, verbose: bool = True):
+    """The serve of ``main``'s parsed ``args`` in this process (one rank
+    of ``mesh`` when given); returns (session, output)."""
+    say = print if verbose else (lambda *a, **k: None)
+    if args.telemetry is not None:
+        OBS.enable()
     device = resolve_device(args.device)
     ex = None
     loaded_states = None
@@ -443,7 +544,7 @@ def main(argv: Optional[List[str]] = None):
         ex = AnalogExecutor(
             acfg=AnalogConfig(enabled=True, backend=args.analog_backend,
                               layers=layers),
-            geom=CASE_A, emulator_params=eparams)
+            geom=CASE_A, emulator_params=eparams, mesh=mesh)
         if args.conditioned_emulator:
             from repro_torch.nonideal import (N_SCENARIO_FEATURES,
                                               SCENARIO_FEATURE_NAMES)
@@ -453,24 +554,25 @@ def main(argv: Optional[List[str]] = None):
                     f"conditioned (periph width must be 2 + "
                     f"{N_SCENARIO_FEATURES}; train with "
                     "nonideal.train_conditioned_emulator)")
-            print(f"conditioned emulator: {N_SCENARIO_FEATURES} scenario "
-                  f"features ({', '.join(SCENARIO_FEATURE_NAMES[:4])}, ...)")
+            say(f"conditioned emulator: {N_SCENARIO_FEATURES} scenario "
+                f"features ({', '.join(SCENARIO_FEATURE_NAMES[:4])}, ...)")
         if args.state_load:
             from repro_torch.core.deployment import load_deployment
-            loaded_states, dep = load_deployment(args.state_load, device)
+            loaded_states, dep = load_deployment(args.state_load, device,
+                                                 executor=ex)
             ex.deploy(scenario=dep.scenario, key=dep.key, remap=dep.remap,
                       states=dep.states)
-            print(f"deployment restored: {len(loaded_states)} call sites "
-                  f"from {args.state_load}")
+            say(f"deployment restored: {len(loaded_states)} call sites "
+                f"from {args.state_load}")
         elif args.scenario:
             from repro_torch.core import prng
             from repro_torch.nonideal import get_scenario
             ex.deploy(scenario=get_scenario(args.scenario), age=args.age,
                       remap=args.fault_remap,
                       key=prng.fold_in(prng.key(args.seed), 0xDEF))
-            print(f"analog scenario: {ex.scenario.name}"
-                  f"{'' if args.age is None else f' at age {args.age:g} s'}"
-                  f"{', fault remap' if args.fault_remap else ''}")
+            say(f"analog scenario: {ex.scenario.name}"
+                f"{'' if args.age is None else f' at age {args.age:g} s'}"
+                f"{', fault remap' if args.fault_remap else ''}")
     sess = ServeSession(args.arch, reduced=args.reduced,
                         reduced_layers=args.layers, batch=args.batch,
                         prompt_len=args.prompt_len, gen=args.gen,
@@ -481,16 +583,24 @@ def main(argv: Optional[List[str]] = None):
                            label="serve") as sent:
         out = sess.generate(states=loaded_states)
     B, P, G = args.batch, args.prompt_len, args.gen
-    print(f"prefill {B}x{P}: {out['prefill_s'] * 1e3:.1f} ms "
-          f"({B * P / out['prefill_s']:.0f} tok/s)")
-    print(f"decode  {G - 1} steps: {out['decode_s'] * 1e3:.1f} ms "
-          f"({B * (G - 1) / max(out['decode_s'], 1e-9):.0f} tok/s)")
-    print("sample tokens[0]:", out["tokens"][0, :12].tolist())
+    say(f"prefill {B}x{P}: {out['prefill_s'] * 1e3:.1f} ms "
+        f"({B * P / out['prefill_s']:.0f} tok/s)")
+    say(f"decode  {G - 1} steps: {out['decode_s'] * 1e3:.1f} ms "
+        f"({B * (G - 1) / max(out['decode_s'], 1e-9):.0f} tok/s)")
+    say("sample tokens[0]:", out["tokens"][0, :12].tolist())
     if args.state_save:
-        path = sess.save_deployment(args.state_save)
-        print(f"deployment saved: {len(sess._last_states)} call sites "
-              f"-> {path}")
-    if args.telemetry is not None:
+        if mesh is None:
+            path = sess.save_deployment(args.state_save)
+        else:
+            # every rank of the model axis gathers; rank 0 writes
+            from repro_torch.core.deployment import save_deployment
+            states = ex.gather_states(sess._last_states)
+            path = args.state_save
+            if verbose:
+                save_deployment(path, states, ex.deployment)
+        say(f"deployment saved: {len(sess._last_states)} call sites "
+            f"-> {path}")
+    if args.telemetry is not None and verbose:
         if not sent.ok:
             print(f"WARNING recompile sentinel tripped: {sent.violations}")
         from repro_torch.obs import snapshot, write_snapshot

@@ -54,7 +54,7 @@ class ScenarioSweep:
         if st is None:
             ex = self.ex
             self.builds += 1
-            st = {"plan": ex._plan_for(self.w, self.tag),
+            st = {"plan": ex._whole(ex._plan_for(self.w, self.tag), self.w),
                   "ep": (ex.emulator_params
                          if ex.acfg.backend == "emulator" else None),
                   "conditioned": getattr(ex, "emulator_conditioned", False)}

@@ -45,17 +45,16 @@ def test_serve_session_end_to_end_bf16(backend):
 
 
 def test_serve_cli_flags_of_unported_subsystems_raise():
-    """Only the mesh and device-count flags are unported (``--telemetry``
-    is ported: ``tests/test_torch_obs.py`` serves it); the non-ideal
-    flags are ported and keep the reference's argument checks
-    (``tests/test_torch_deployment.py`` serves them)."""
+    """No serve flag is unported any more: the mesh and device-count
+    flags (``tests/test_torch_sharding.py`` serves them), ``--telemetry``
+    (``tests/test_torch_obs.py``) and the non-ideal flags
+    (``tests/test_torch_deployment.py``) keep the reference's argument
+    checks: on the digital backend each is an argparse error."""
     from repro_torch.launch import serve
     base = ["--arch", "gemma3-1b", "--reduced", "--device", "cpu"]
-    for flag in (["--mesh", "1,2"], ["--devices", "2"]):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            serve.main(base + flag)
-    assert sorted(serve._NOT_PORTED) == ["devices", "mesh"]
-    for flag in (["--scenario", "stressed"], ["--fault-remap"],
+    assert not hasattr(serve, "_NOT_PORTED")
+    for flag in (["--mesh", "1,2"], ["--devices", "2"],
+                 ["--scenario", "stressed"], ["--fault-remap"],
                  ["--age", "10"], ["--conditioned-emulator"],
                  ["--state-save", "x.npz"], ["--state-load", "x.npz"]):
         with pytest.raises(SystemExit):          # argparse's error exit
@@ -106,7 +105,9 @@ print('MISSING', [m for m in NEW if m not in sys.modules])
             "repro_torch.launch.batching", "repro_torch.launch.train",
             "repro_torch.runtime.trainer", "repro_torch.optim.adamw",
             "repro_torch.checkpoint.manager", "repro_torch.data.pipeline",
-            "repro_torch.parallel.collectives"]
+            "repro_torch.parallel.collectives",
+            "repro_torch.parallel.sharding", "repro_torch.launch.mesh",
+            "repro_torch.kernels.autotune"]
     new += ["repro_torch.obs" + m for m in ("", ".trace", ".registry",
                                             ".export", ".sentinel")]
     new += [f"repro_torch.kernels.{k}.{m}"
