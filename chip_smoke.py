@@ -249,7 +249,9 @@ JAX or of the JAX package.  Phases (any failure exits non-zero):
      shape), with its count and the largest error of its decode calls),
      and phase 16's (``mesh_launches`` per run, summed over its ranks and
      counted in ``launches``; ``mesh_path``: each rank's figures;
-     ``tuner``: phase 16 (d), its launches not counted in ``launches``).
+     ``tuner``: phase 16 (d), its launches not counted in ``launches``),
+     and phase 17's (``train_mesh_launches``, B1's and B6's per run,
+     summed over its ranks and counted in ``launches``).
  16. the tensor-parallel analog plane and the autotuner (run before the
      kernels line, which carries their launches).  Phases 1-15 run with
      ``REPRO_AUTOTUNE=0`` (set at the start, with the tuner's cache file
@@ -278,12 +280,41 @@ JAX or of the JAX package.  Phases (any failure exits non-zero):
      bound, the second resolution a ``memory`` hit and a fresh process's
      a ``disk`` hit, and B1 bit-equal (``torch.equal``) under every
      candidate tile.
+ 17. training on a mesh (run after phase 16, before the kernels line),
+     every rank on the one card over gloo, random weights at full
+     published widths (``MT*``): (a) gemma3-1b at depth 2, bf16 compute,
+     remat "full", 4 x 256, 3 steps unsharded and on (2, 1), (1, 2) and
+     (2, 2) meshes (the train step; on (2, 2) the ``Trainer``, its
+     checkpoint every 2 steps feeding (b)): each rank's loss within 1e-2 and
+     clip norm within 5% of the unsharded run's at every step; its bytes
+     of params + m + v beside the unsharded state's, every leaf whose spec
+     divides every axis held at 1/(dp*tp) (gated); step ms, and the
+     synchronized ms of its collectives a step; peak memory.  (b) the (2,
+     2) run's step-2 checkpoint restored on (4, 1) and in one process:
+     step 2's loss within 1e-2 of the (2, 2) run's.  (c) phase 12 (b)'s
+     model (one period, MLPs on the phase-3 net, fp32) and
+     recurrentgemma-2b cut to one period (fp32), one step each on (1, 2):
+     the recurrent step's loss within rtol 1e-4 of the unsharded step's;
+     the analog step's within rtol 1e-2 (``MT_EMU_RTOL``: the split
+     digital products' last bits, which the emulated MLPs amplify), and
+     within rtol 1e-5 with every digital product whole on each rank (the
+     analog plane alone on the mesh); B1's and B6's launches a rank equal
+     to the unsharded step's, and each rank's first and last B1 call (by
+     column chunks) and B6 call against the plain versions (rtol 1e-4 /
+     atol 1e-5).  The ranks of (a)'s (2, 1) and (1, 2), (c) and (d)'s
+     (1, 2) share one world of 2; (a)'s (2, 2), (b) and (d)'s (1, 4) one
+     of 4.  (d) ``sharded_flash_decode``
+     at a gemma3-1b global layer's cache (S_max 32,768, fp32) on (1, 2)
+     and (1, 4), each rank against ``decode_attention`` on the whole cache
+     (rtol 1e-4 / atol 1e-5), both timed.  A JSON ``train_mesh`` line.
 """
 from __future__ import annotations
 
+import contextlib
 import importlib
 import json
 import os
+import statistics
 import subprocess
 import sys
 import time
@@ -1132,6 +1163,10 @@ def main() -> None:
 
     # ---- phase 16: the tensor-parallel plane and the tuner ---------------
     mesh = mesh_phase(dev, card, npz, unsharded, b1_shapes)
+    torch.cuda.empty_cache()
+
+    # ---- phase 17: training on a mesh --------------------------------------
+    mt = mesh_train_phase(dev, card, npz)
 
     # ---- phase 15: the kernels line --------------------------------------
     ebk = "emulator_block/emulator_block.py:"
@@ -1145,10 +1180,11 @@ def main() -> None:
               ebk + "295",
               b1_launches + serv["b1"] + sum(life["b1"].values())
               + train["b1"]["training"] + sum(dec["b1"].values())
-              + sum(front["b1"].values()) + sum(mesh["b1"].values()),
+              + sum(front["b1"].values()) + sum(mesh["b1"].values())
+              + sum(mt["b1"].values()),
               max(max_abs["B1"], ni["b1_err"], rec["b1_err"], serv["b1_err"],
                   life["b1_err"], train["b1_err"], dec["b1_err"],
-                  front["b1_err"], mesh["b1_err"]),
+                  front["b1_err"], mesh["b1_err"], mt["b1_err"]),
               b1_head, b1_shapes, nonideal_launches=ni["b1"],
               model_launches=rec["b1"], model_path=rec["b1_rows"],
               engine_launches=serv["b1"], engine_path=serv["b1_rows"],
@@ -1157,7 +1193,7 @@ def main() -> None:
               decoder_launches=dec["b1"], decoder_path=dec["b1_rows"],
               frontend_launches=front["b1"], frontend_path=front["b1_rows"],
               mesh_launches=mesh["b1"], mesh_path=mesh["rows"],
-              tuner=mesh["tuner"]),
+              tuner=mesh["tuner"], train_mesh_launches=mt["b1"]),
         entry("emulator_block_unified (bf16 mode)",
               src + "emulator_block_unified.cu", ebk + "295", b1_bf16_launches,
               max_abs["B1 bf16"], b1_bf16_head, b1_bf16_shapes),
@@ -1174,20 +1210,23 @@ def main() -> None:
         b4, b5, b6,
     ]
     b6["max_abs_err"] = max(b6["max_abs_err"], rec["b6_err"], serv["b6_err"],
-                            train["b6_err"])
+                            train["b6_err"], mt["b6_err"])
     b6["model_launches"] = rec["b6"]
     b6["model_path"] = rec["rows"]
-    b6["launches"] += serv["b6"] + sum(train["b6"].values())
+    b6["launches"] += (serv["b6"] + sum(train["b6"].values())
+                       + sum(mt["b6"].values()))
     b6["engine_launches"] = serv["b6"]
     b6["engine_path"] = serv["rows"][1:]
     b6["training_launches"] = train["b6"]
     b6["training_backward"] = train["b6_rows"]
+    b6["train_mesh_launches"] = mt["b6"]
     print(json.dumps({"serving": serv["rows"][0]}), flush=True)
     print(json.dumps({"lifetime": life["rows"]}), flush=True)
     print(json.dumps({"training": train["row"]}), flush=True)
     print(json.dumps({"decoders": dec["rows"]}), flush=True)
     print(json.dumps({"frontends": front["rows"]}), flush=True)
     print(json.dumps({"mesh": mesh["rows"]}), flush=True)
+    print(json.dumps({"train_mesh": mt["rows"]}), flush=True)
     print(f"[done] {time.perf_counter() - t_start:.1f} s", flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
@@ -4726,6 +4765,501 @@ def mesh_phase(dev, card, npz, unsharded, b1_shapes):
           flush=True)
     return dict(b1=launches, rows=rows, b1_err=err, tuner=tuner)
 
+
+
+# phase 17's runs, random weights at full published widths, every rank on
+# the one card over gloo: (a) gemma3-1b at depth 2, bf16 compute, remat
+# "full", batch 4 x 256, 3 steps on the unsharded trainer and on each of
+# ``MT_MESHES``; (b) the (2, 2) run's step-2 checkpoint onto (4, 1) and
+# onto one process; (c) phase 12 (b)'s model (gemma3-1b cut to one period,
+# MLPs on the phase-3 net, fp32) and recurrentgemma-2b cut to one (R, R, L)
+# period (B6, fp32), one step each on (1, 2); (d) a gemma3-1b global
+# layer's cache (S_max 32,768, fp32) on (1, 2) and (1, 4).
+MT = dict(arch="gemma3-1b", layers=2, B=4, S=256, steps=3)
+MT_MESHES = ((2, 1), (1, 2), (2, 2))
+MT_LOSS_ATOL = 1e-2          # bf16 compute: the loss within 1e-2
+MT_GNORM_RTOL = 5e-2         # and the clip norm within 5%
+MT_EMU = dict(arch="gemma3-1b", layers=6, B=4, S=32)
+# (c)'s analog loss on the mesh against the unsharded step: the split
+# digital products round their last bits otherwise than the whole ones,
+# and the emulated MLPs amplify that (a drive at exactly zero maps to 0 V,
+# any other to at least v_th, and gelu's exact zeros sit on that edge);
+# with the digital products whole on every rank the gate is rtol 1e-5
+MT_EMU_RTOL, MT_EMU_WHOLE_RTOL = 1e-2, 1e-5
+MT_REC = dict(arch="recurrentgemma-2b", layers=3, B=2, S=128)
+MT_FLASH = dict(B=4, S_max=32768, pos=20001, reps=10)
+
+
+def _mt_setup(kind, every=100):
+    """(cfg, pcfg, tcfg, data) of a phase-17 run: ``kind`` "dense" (bf16),
+    "emu" or "rec" (fp32); a checkpoint every ``every`` steps."""
+    from repro_torch.configs import get_config, with_depth
+    from repro_torch.configs.base import ParallelConfig, TrainConfig
+    from repro_torch.data import SyntheticLMData
+    spec = {"dense": MT, "emu": MT_EMU, "rec": MT_REC}[kind]
+    cfg = with_depth(get_config(spec["arch"]), spec["layers"])
+    pcfg = ParallelConfig(
+        compute_dtype="bfloat16" if kind == "dense" else "float32",
+        remat="full", attn_block_kv=min(1024, spec["S"]),
+        xent_chunk=min(2048, spec["S"]))
+    tcfg = TrainConfig(lr=TRAIN_LR, warmup_steps=TRAIN_WARMUP,
+                       total_steps=spec.get("steps", 1), checkpoint_every=every)
+    return cfg, pcfg, tcfg, SyntheticLMData(cfg, spec["S"], spec["B"])
+
+
+def _mt_trainer(cfg, pcfg, tcfg, data, mesh, ckpt, device, steps):
+    """A ``Trainer`` run to ``steps`` (on ``mesh``, or none) over the
+    checkpoints in ``ckpt`` -- or, with ``ckpt=None``, the train step run
+    ``steps`` times from the seed's state on the batches the trainer
+    feeds, no checkpoint written: its losses, clip norms and step
+    seconds, each step's synchronized collective ms, the bytes of the
+    state it holds (and, on a mesh, the leaves that do not hold
+    1/(dp*tp) of a leaf whose spec divides every axis), its peak
+    memory."""
+    import torch
+    from repro_torch.models.common import (mesh_axes, spec_axes, tree_items,
+                                           tree_leaves)
+    from repro_torch.parallel.train_mesh import batch_rows, collective_times
+    from repro_torch.runtime import steps as S
+    from repro_torch.runtime.trainer import Trainer
+    coll, held = [], {}
+
+    def timed(real):
+        def step(state, batch):
+            with collective_times() as c:
+                out = real(state, batch)
+            torch.cuda.synchronize()
+            coll.append(sum(c))
+            held["state"] = out[0]
+            return out
+        return step
+
+    torch.cuda.reset_peak_memory_stats()
+    if ckpt is None:
+        step = timed(S.make_train_step(cfg, pcfg, tcfg, mesh=mesh))
+        state, log = S.init_train_state(tcfg.seed, cfg, device, mesh=mesh), []
+        for i in range(steps):
+            t0 = time.perf_counter()
+            batch = data.batch(i)
+            if mesh is not None:
+                rows = batch_rows(next(iter(batch.values())).shape[0],
+                                  mesh).numpy()
+                batch = {k: v[rows] for k, v in batch.items()}
+            state, met = step(state, _to_dev(batch, device))
+            log.append(dict(step=i, loss=float(met["loss"]),
+                            gnorm=float(met["gnorm"]),
+                            dt=time.perf_counter() - t0))
+        del state
+    else:
+        tr = Trainer(cfg=cfg, pcfg=pcfg, tcfg=tcfg, mesh=mesh, data=data,
+                     ckpt_dir=ckpt, device=device)
+        tr._build()
+        tr._step = timed(tr._step)
+        tr.run(steps)
+        log = tr.metrics_log
+    st = held["state"]
+    nbytes = {k: sum(t.nbytes for t in tree_leaves(v)) for k, v in (
+        ("params", st["params"]), ("m", st["opt"]["m"]),
+        ("v", st["opt"]["v"]))}
+    bad, dividing = [], 0
+    if mesh is not None:
+        axes = {a for a, n in mesh_axes(mesh).items() if n > 1}
+        n = 1
+        for a in axes:
+            n *= mesh_axes(mesh)[a]
+        specs = dict(tree_items(S.train_state_specs(cfg, mesh)["params"]))
+        full = dict(tree_items(S.abstract_train_state(cfg)["params"]))
+        for k, t in tree_items(st["params"]):
+            if axes <= set(spec_axes(specs[k])):
+                dividing += 1
+                if t.numel() * n != full[k].numel():
+                    bad.append(k)
+    del held, st
+    return dict(losses=[r["loss"] for r in log],
+                gnorms=[r["gnorm"] for r in log],
+                steps=[r["step"] for r in log],
+                dt_ms=[r["dt"] * 1e3 for r in log], coll_ms=coll,
+                bytes=nbytes, dividing=dividing, not_divided=bad,
+                peak=torch.cuda.max_memory_allocated())
+
+
+def _mt_flash(mesh, device):
+    """(d) on ``mesh``: this rank's ``sharded_flash_decode`` of its block
+    of a seeded cache against ``decode_attention`` on the whole cache; the
+    largest error and both calls' synchronized ms."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.attention import (decode_attention,
+                                              sharded_flash_decode)
+    from repro_torch.parallel.train_mesh import model_index, model_size
+    cfg, f = get_config("gemma3-1b"), MT_FLASH
+    g = torch.Generator(device=device)
+    g.manual_seed(1717)
+    shape = (f["B"], f["S_max"], cfg.num_kv_heads, cfg.head_dim)
+    q = torch.randn((f["B"], 1, cfg.num_heads, cfg.head_dim), generator=g,
+                    device=device)
+    ck = torch.randn(shape, generator=g, device=device)
+    cv = torch.randn(shape, generator=g, device=device)
+    n = f["S_max"] // model_size(mesh)
+    t = model_index(mesh)
+    lk, lv = ck[:, t * n:(t + 1) * n].contiguous(), cv[:, t * n:(t + 1) * n].contiguous()
+    valid = torch.arange(f["S_max"], device=device) <= f["pos"]
+
+    def sharded():
+        return sharded_flash_decode(q, lk, lv, f["pos"], cfg, mesh=mesh)
+
+    def whole():
+        return decode_attention(q, ck, cv, valid, cfg)
+
+    y, want = sharded(), whole()
+    err = float((y - want).abs().max())
+    ok = bool(torch.allclose(y, want, rtol=RTOL, atol=ATOL))
+    times = {}
+    for name, fn in (("sharded", sharded), ("whole", whole)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(f["reps"]):
+            fn()
+        torch.cuda.synchronize()
+        times[name] = (time.perf_counter() - t0) * 1e3 / f["reps"]
+    return dict(err=err, ok=ok, ms=times["sharded"], whole_ms=times["whole"],
+                S_local=n)
+
+
+def _mt_rank(rank, world, device, payload):
+    """One rank of phase 17: (a) on each mesh of ``payload["meshes"]``
+    (every one over the ``world`` ranks), then where the payload asks for
+    them (b), (d) on a (1, tp) mesh of each ``payload["flash"]`` and (c)."""
+    import gc
+    import shutil
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_mesh_for
+    from repro_torch.models.common import mesh_coords
+    out = {"rank": rank, "secs": {}}
+    t0 = time.perf_counter()
+    for m in payload["meshes"]:
+        mesh = make_mesh_for(world, model_axis=m[1], device=device)
+        cfg, pcfg, tcfg, data = _mt_setup("dense", every=2 if m == (2, 2)
+                                          else 100)
+        # the trainer (and its checkpoints) where (b) restarts from them
+        ckpt = f"{payload['ckpt']}_22" if m == (2, 2) else None
+        out[f"a {m}"] = _mt_trainer(cfg, pcfg, tcfg, data, mesh, ckpt,
+                                    device, MT["steps"])
+        out[f"a {m}"]["coords"] = mesh_coords(mesh)
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["secs"][f"(a) {m}"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+    if payload.get("elastic"):
+        if rank == 0:
+            shutil.copytree(Path(f"{payload['ckpt']}_22") / "step_00000002",
+                            Path(payload["elastic"]) / "step_00000002")
+        dist.barrier()
+        out["b"] = _mt_trainer(cfg, pcfg, tcfg, data,
+                               make_mesh_for(world, model_axis=1,
+                                             device=device),
+                               payload["elastic"], device, MT["steps"])
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["secs"]["(b)"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+    for ftp in payload.get("flash", ()):
+        out[f"flash {ftp}"] = _mt_flash(
+            make_mesh_for(world, model_axis=ftp, device=device), device)
+        out["secs"][f"(d) 1,{ftp}"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+    if payload.get("npz"):
+        out.update(_mt_emu(world, device, payload["npz"]))
+        out["secs"]["(c)"] = time.perf_counter() - t0
+    return out
+
+
+def _mt_step(kind, device, mesh=None, eparams=None):
+    """One step of a phase-17 (c) run from the seed-0 state on batch 0 --
+    on ``mesh`` this rank's windows and rows; ``eparams``: the MLPs on
+    the emulator.  Returns (metrics, B1's and B6's launches, their first
+    and last calls, the step's seconds)."""
+    import torch
+    from repro_torch.configs.base import AnalogConfig
+    from repro_torch.configs.rram_ps32 import CASE_A
+    from repro_torch.core.analog import AnalogExecutor
+    from repro_torch.kernels.emulator_block import emulator_block as eb
+    from repro_torch.models.common import use_dense_hook
+    from repro_torch.parallel.train_mesh import batch_rows
+    from repro_torch.runtime import steps as S
+    lsm = importlib.import_module("repro_torch.kernels.linear_scan.linear_scan")
+    b1_ops = importlib.import_module("repro_torch.kernels.emulator_block.ops")
+    b6_ops = importlib.import_module("repro_torch.kernels.linear_scan.ops")
+    cfg, pcfg, tcfg, data = _mt_setup(kind)
+    state = S.init_train_state(0, cfg, device, mesh=mesh)
+    batch = data.batch(0)
+    if mesh is not None:
+        rows = batch_rows(next(iter(batch.values())).shape[0], mesh).numpy()
+        batch = {k: v[rows] for k, v in batch.items()}
+    batch = _to_dev(batch, device)
+    step = S.make_train_step(cfg, pcfg, tcfg, mesh=mesh)
+    calls = {"b1": [], "b6": []}
+    real_b1, real_b6 = b1_ops.emulator_block_unified_cuda, b6_ops.linear_scan_cuda
+
+    def rec_b1(aux, g, u, pos, **kw):
+        y = real_b1(aux, g, u, pos, **kw)
+        calls["b1"][1:] = [(aux, g, u, pos, kw.get("shift"), y)]
+        return y
+
+    def rec_b6(a, b, b0=None):
+        h = real_b6(a, b, b0)
+        calls["b6"][1:] = [(a, b, b0, h)]
+        return h
+
+    hook = None
+    if eparams is not None:
+        hook = AnalogExecutor(AnalogConfig(enabled=True, backend="emulator",
+                                           layers=("mlp",)), geom=CASE_A,
+                              emulator_params=eparams, mesh=mesh).hook
+    b1_ops.emulator_block_unified_cuda, b6_ops.linear_scan_cuda = rec_b1, rec_b6
+    eb.emulator_block_unified_cuda.launches = 0
+    lsm.linear_scan_cuda.launches = 0
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with (use_dense_hook(hook) if hook else contextlib.nullcontext()):
+            state, met = step(state, batch)
+        met = {k: float(v) for k, v in met.items()}
+        secs = time.perf_counter() - t0
+    finally:
+        b1_ops.emulator_block_unified_cuda = real_b1
+        b6_ops.linear_scan_cuda = real_b6
+    return (met, eb.emulator_block_unified_cuda.launches,
+            lsm.linear_scan_cuda.launches, calls, secs)
+
+
+def _mt_kernel_errs(calls):
+    """The largest error of the recorded B1 calls against B1's plain
+    version (by column chunks) and of the B6 calls against B6's."""
+    from repro_torch.kernels.emulator_block import emulator_block as eb
+    lsm = importlib.import_module("repro_torch.kernels.linear_scan.linear_scan")
+    e1 = e6 = 0.0
+    for aux, g, u, pos, sh, y in calls["b1"]:
+        want = (_plain_by_columns(aux, g, u, pos) if sh is None else
+                eb.emulator_block_unified_plain(aux, g, u, pos, shift=sh))
+        e1 = max(e1, compare(f"B1 on a mesh M={u.shape[0]} NB={g.shape[0]} "
+                             f"NO={g.shape[1]}", y, want))
+    for a, b, b0, h in calls["b6"]:
+        e6 = max(e6, compare(f"B6 on a mesh {tuple(a.shape)}", h,
+                             lsm.linear_scan_plain(a, b, b0)))
+    return e1, e6
+
+
+def _mt_emu(world, device, npz):
+    """Phase 17 (c) on a rank of a (1, world) mesh: the analog step and
+    the recurrent step, each rank's B1 and B6 calls held against their
+    plain versions; the analog step once more with every digital product
+    whole on each rank ("emu whole": ``train_mesh.split_dense`` swapped
+    for the whole product), the analog plane alone on the mesh."""
+    from repro_torch.interop import load_emulator_npz
+    from repro_torch.launch.mesh import make_mesh_for
+    import gc
+    import torch
+    from repro_torch.parallel import train_mesh
+    mesh = make_mesh_for(world, model_axis=world, device=device)
+    eparams = load_emulator_npz(npz, device)
+    out = {}
+    split = train_mesh.split_dense
+
+    def whole(x, w, tag, mesh):
+        return torch.matmul(x, w.to(x.dtype))
+
+    for kind, ep, dense in (("emu", eparams, split), ("rec", None, split),
+                            ("emu whole", eparams, whole)):
+        train_mesh.split_dense = dense
+        try:
+            met, b1, b6, calls, secs = _mt_step(kind.split()[0], device,
+                                                mesh, ep)
+        finally:
+            train_mesh.split_dense = split
+        e1, e6 = _mt_kernel_errs(calls)
+        out[kind] = dict(metrics=met, b1=b1, b6=b6, b1_err=e1, b6_err=e6,
+                         step_ms=secs * 1e3)
+        del calls
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def mesh_train_phase(dev, card, npz):
+    """Phase 17 (module docstring): returns B1's and B6's launches per run,
+    their largest errors, and the rows of the ``train_mesh`` JSON line."""
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch.interop import load_emulator_npz
+    from repro_torch.launch.mesh import launch
+    t_phase = time.perf_counter()
+    out = {"b1": {}, "b6": {}, "b1_err": 0.0, "b6_err": 0.0, "rows": []}
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_mt_", dir=ROOT / "build"))
+    torch.cuda.empty_cache()
+
+    # -- (a) the unsharded trainer, the yardstick -----------------------------
+    cfg, pcfg, tcfg, data = _mt_setup("dense")
+    t0 = time.perf_counter()
+    base = _mt_trainer(cfg, pcfg, tcfg, data, None, None, dev, MT["steps"])
+    full = base["bytes"]
+    print(f"[train mesh] (a) unsharded {cfg.name} ({cfg.num_layers} layers, "
+          f"d_model {cfg.d_model}, bf16, {MT['B']} x {MT['S']}): loss "
+          f"{' '.join(f'{l:.4f}' for l in base['losses'])}, gnorm "
+          f"{' '.join(f'{g:.4f}' for g in base['gnorms'])}; steps "
+          f"{' '.join(f'{d:.1f}' for d in base['dt_ms'])} ms; state "
+          f"{sum(full.values()) / 1e9:.3f} GB; peak "
+          f"{base['peak'] / 2**30:.2f} GiB; {time.perf_counter() - t0:.1f} s "
+          f"[{card}]", flush=True)
+    out["rows"].append(dict(run="(a) unsharded", mesh=None, **base))
+    torch.cuda.empty_cache()
+
+    # -- (c)'s unsharded steps: the yardsticks of (c) --------------------------
+    eparams = load_emulator_npz(str(npz), dev)
+    want = {}
+    for kind, ep in (("emu", eparams), ("rec", None)):
+        met, b1, b6, _, secs = _mt_step(kind, dev, None, ep)
+        want[kind] = (met, b1, b6)
+        out["b1"][f"(c) {kind} unsharded"] = b1
+        out["b6"][f"(c) {kind} unsharded"] = b6
+    del eparams
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- two worlds: (a) (2, 1), (1, 2), (d) (1, 2), (c); (a) (2, 2), (b), (d)
+    runs = ((2, dict(meshes=((2, 1), (1, 2)), flash=(2,), npz=str(npz))),
+            (4, dict(meshes=((2, 2),), flash=(4,),
+                     elastic=str(tmp / "elastic"))))
+    for world, payload in runs:
+        payload["ckpt"] = str(tmp / f"w{world}")
+        t0 = time.perf_counter()
+        res = launch(_mt_rank, world, device=dev, args=(payload,))
+        print(f"[train mesh] world of {world} ranks: {time.perf_counter() - t0:.1f} "
+              f"s with the ranks' start; rank 0's parts "
+              + ", ".join(f"{k} {v:.1f} s" for k, v in res[0]["secs"].items()),
+              flush=True)
+        for m in payload["meshes"]:
+            for r in res:
+                _mt_report_a(m, r, base, card, out)
+        for r in res:
+            if "b" in r:
+                b = r["b"]
+                a = r["a (2, 2)"]
+                i = b["steps"].index(2)
+                lw = a["losses"][a["steps"].index(2)]
+                if b["steps"][0] != 2 or abs(b["losses"][i] - lw) > MT_LOSS_ATOL:
+                    fail(f"[train mesh] (b) rank {r['rank']}: the (4, 1) "
+                         f"restart's step 2 loss {b['losses']} against {lw}")
+                print(f"[train mesh] (b) (2, 2) step-2 checkpoint on (4, 1) "
+                      f"rank {r['rank']}: step 2 loss {b['losses'][i]:.4f} "
+                      f"(the (2, 2) run's {lw:.4f}) [{card}]", flush=True)
+                out["rows"].append(dict(run="(b) (4, 1)", rank=r["rank"],
+                                        loss=b["losses"][i], want=lw))
+            for k in [k for k in r if k.startswith("flash")]:
+                f = r[k]
+                out["rows"].append(dict(run=f"(d) {k}", rank=r["rank"], **f))
+                if not f["ok"]:
+                    fail(f"[train mesh] (d) {k} rank {r['rank']}: the "
+                         f"combine is {f['err']} from decode_attention")
+                print(f"[train mesh] (d) sharded_flash_decode on (1, "
+                      f"{k.split()[1]}) rank {r['rank']}: S_local "
+                      f"{f['S_local']}, max abs err {f['err']:.2e} against "
+                      f"decode_attention on S_max {MT_FLASH['S_max']}; "
+                      f"{f['ms']:.3f} ms a call with its collectives, the "
+                      f"whole cache's {f['whole_ms']:.3f} ms [{card}]",
+                      flush=True)
+        if payload.get("npz"):
+            _mt_report_c(res, want, card, out)
+        torch.cuda.empty_cache()
+
+    # -- (b) one process from the (2, 2) run's step-2 checkpoint --------------
+    one = tmp / "one"
+    shutil.copytree(tmp / "w4_22" / "step_00000002", one / "step_00000002")
+    solo = _mt_trainer(cfg, pcfg, tcfg, data, None, str(one), dev,
+                       MT["steps"])
+    a = res[0]["a (2, 2)"]
+    lw = a["losses"][a["steps"].index(2)]
+    if solo["steps"][0] != 2 or abs(solo["losses"][0] - lw) > MT_LOSS_ATOL:
+        fail(f"[train mesh] (b) one process: step 2 loss {solo['losses']} "
+             f"against the (2, 2) run's {lw}")
+    print(f"[train mesh] (b) (2, 2) step-2 checkpoint in one process: step 2 "
+          f"loss {solo['losses'][0]:.4f} (the (2, 2) run's {lw:.4f}) "
+          f"[{card}]", flush=True)
+    out["rows"].append(dict(run="(b) one process", loss=solo["losses"][0],
+                            want=lw))
+    shutil.rmtree(tmp, ignore_errors=True)
+    secs = time.perf_counter() - t_phase
+    print(f"[train mesh] phase 17 took {secs:.1f} s; B1 launches {out['b1']}; "
+          f"B6 launches {out['b6']}", flush=True)
+    return out
+
+
+def _mt_report_a(m, r, base, card, out):
+    """Gate and print (a) on mesh ``m`` for one rank's results ``r``."""
+    a = r[f"a {m}"]
+    world = m[0] * m[1]
+    for i, (l, g, lw, gw) in enumerate(zip(
+            a["losses"], a["gnorms"], base["losses"], base["gnorms"])):
+        if not (abs(l - lw) <= MT_LOSS_ATOL
+                and abs(g - gw) <= MT_GNORM_RTOL * abs(gw)):
+            fail(f"[train mesh] (a) {m} rank {r['rank']} step {i}: loss {l} "
+                 f"gnorm {g} against the unsharded {lw} {gw}")
+    if a["not_divided"] or not a["dividing"]:
+        fail(f"[train mesh] (a) {m} rank {r['rank']}: leaves not at "
+             f"1/{world} of the state: {a['not_divided']}")
+    held = sum(a["bytes"].values())
+    share = held / sum(base["bytes"].values())
+    med = statistics.median(a["dt_ms"][1:])
+    coll = statistics.median(a["coll_ms"][1:])
+    print(f"[train mesh] (a) {m} rank {r['rank']} {a['coords']}: loss "
+          f"{' '.join(f'{l:.4f}' for l in a['losses'])}, gnorm "
+          f"{' '.join(f'{g:.4f}' for g in a['gnorms'])}; params+m+v "
+          f"{held / 1e9:.3f} GB = {share:.4f} of the unsharded "
+          f"({a['dividing']} leaves at 1/{world}); step {med:.1f} ms (median "
+          f"of steps 2-{MT['steps']}), collectives {coll:.1f} ms of it; peak "
+          f"{a['peak'] / 2**30:.2f} GiB [{card}]", flush=True)
+    out["rows"].append(dict(run=f"(a) {m}", mesh=list(m), rank=r["rank"],
+                            share=share, step_ms_median=med,
+                            coll_ms_median=coll, **a))
+
+
+def _mt_report_c(res, want, card, out):
+    """Gate and print (c) for each rank's results in ``res``."""
+    tol = {"emu": MT_EMU_RTOL, "rec": RTOL, "emu whole": MT_EMU_WHOLE_RTOL}
+    for kind in ("emu", "rec", "emu whole"):
+        wm, wb1, wb6 = want[kind.split()[0]]
+        for r in res:
+            c = r[kind]
+            if abs(c["metrics"]["loss"] - wm["loss"]) > tol[kind] * abs(wm["loss"]):
+                fail(f"[train mesh] (c) {kind} rank {r['rank']}: loss "
+                     f"{c['metrics']['loss']} against the unsharded "
+                     f"{wm['loss']}")
+            if (c["b1"], c["b6"]) != (wb1, wb6) or not (wb1 or wb6):
+                fail(f"[train mesh] (c) {kind} rank {r['rank']}: B1 / B6 "
+                     f"launched {c['b1']} / {c['b6']} times, the unsharded "
+                     f"step {wb1} / {wb6}")
+            out["b1_err"] = max(out["b1_err"], c["b1_err"])
+            out["b6_err"] = max(out["b6_err"], c["b6_err"])
+            print(f"[train mesh] (c) {kind} on (1, 2) rank {r['rank']}: loss "
+                  f"{c['metrics']['loss']:.6f} (unsharded {wm['loss']:.6f}), "
+                  f"gnorm {c['metrics']['gnorm']:.6f} (unsharded "
+                  f"{wm['gnorm']:.6f}); B1 launches {c['b1']}, B6 launches "
+                  f"{c['b6']} (the unsharded step's {wb1}, {wb6}); first and "
+                  f"last calls against the plain versions: B1 "
+                  f"{c['b1_err']:.2e}, B6 {c['b6_err']:.2e}; step "
+                  f"{c['step_ms']:.1f} ms [{card}]", flush=True)
+            out["rows"].append(dict(run=f"(c) {kind} (1, 2)", rank=r["rank"],
+                                    loss=c["metrics"]["loss"],
+                                    want=wm["loss"],
+                                    gnorm=c["metrics"]["gnorm"],
+                                    want_gnorm=wm["gnorm"], **{k: c[k] for k in (
+                                        "b1", "b6", "b1_err", "b6_err",
+                                        "step_ms")}))
+        out["b1"][f"(c) {kind} (1, 2)"] = sum(r[kind]["b1"] for r in res)
+        out["b6"][f"(c) {kind} (1, 2)"] = sum(r[kind]["b6"] for r in res)
 
 
 def np_isfinite(a) -> bool:

@@ -10,7 +10,10 @@ from repro_torch.configs.base import (  # noqa: F401
     MoEConfig,
     ParallelConfig,
     RGLRUConfig,
+    SHAPES,
+    SHAPES_BY_NAME,
     SSMConfig,
+    ShapeConfig,
     TrainConfig,
     reduced,
     with_depth,

@@ -1,8 +1,9 @@
 """Configuration dataclasses (the port's own copy of ``repro.configs.base``).
 
-``ArchConfig`` describes a model, ``ParallelConfig`` the execution knobs
-the serving and training paths read, ``TrainConfig`` the optimizer and
-checkpoint schedule, ``AnalogConfig`` the SEMULATOR analog backend.  Field names and defaults
+``ArchConfig`` describes a model, ``ShapeConfig`` a workload shape (the
+dry run's ``SHAPES``), ``ParallelConfig`` the execution knobs the serving
+and training paths read, ``TrainConfig`` the optimizer and checkpoint
+schedule, ``AnalogConfig`` the SEMULATOR analog backend.  Field names and defaults
 match the reference so configs read the same.
 """
 from __future__ import annotations
@@ -78,27 +79,60 @@ class AnalogConfig:
 
 
 @dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    mode: str                          # "train" | "prefill" | "decode"
+
+
+# The four assigned workload shapes (identical for every LM arch).
+SHAPES: Tuple[ShapeConfig, ...] = (
+    ShapeConfig("train_4k", 4096, 256, "train"),
+    ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    ShapeConfig("decode_32k", 32768, 128, "decode"),
+    ShapeConfig("long_500k", 524288, 1, "decode"),
+)
+SHAPES_BY_NAME = {s.name: s for s in SHAPES}
+
+
+@dataclass(frozen=True)
 class ParallelConfig:
-    """The execution knobs the serving and training paths read.  The
-    reference's mesh and sharding fields wait for ROADMAP A11; its
-    ``scan_chunk`` has no counterpart (the port's recurrence has no
-    tiling, ROADMAP A9)."""
+    """The execution knobs the serving and training paths read.
+
+    Mesh axis names: the batch is sharded over (pod, data); weights over
+    (data = fsdp, model = tp); experts and a big KV cache's sequence over
+    model (``models.common`` places each leaf by its schema's spec).
+    ``residual_seq_shard`` keeps the residual stream between layers, and
+    so the remat stash, sequence-sharded over model outside decode
+    (Megatron-SP); ``decode_seq_shard`` holds each model rank's
+    ``S_max / tp`` of a global layer's KV cache (flash-decode).  The
+    reference's ``scan_layers`` and ``scan_chunk`` have no counterpart:
+    the port's period loop is a Python loop and its recurrence has no
+    tiling."""
+    fsdp_axis: str = "data"
+    tp_axis: str = "model"
+    pod_axis: str = "pod"
     remat: str = "full"                # "none" | "full" | "dots"
     attn_block_kv: int = 1024          # blockwise-softmax KV block
+    attn_block_q: int = 1024
     xent_chunk: int = 2048             # chunked cross-entropy seq chunk
+    decode_seq_shard: bool = False     # shard KV-cache seq dim over model
+    residual_seq_shard: bool = False   # Megatron-SP residual stream
     grad_accum: int = 1                # microbatches per step (memory knob)
     grad_compression: str = "none"     # "none" | "int8"
     param_dtype: str = "float32"
     compute_dtype: str = "bfloat16"
 
     def __post_init__(self):
-        # no step of the reference reads these two (its dry run, which
-        # moves with the mesh, reports one): another value would silently
-        # change nothing
+        # no step of the reference reads these two (its dry run reports
+        # one): another value would silently change nothing, so it is
+        # refused (ROADMAP A11 struck their wiring)
         if self.grad_compression != "none" or self.param_dtype != "float32":
             raise NotImplementedError(
                 "grad_compression and param_dtype other than their defaults "
-                "are not ported yet (ROADMAP A11)")
+                "are read by no step of the reference, and are refused "
+                "(ROADMAP A11)")
 
 
 @dataclass(frozen=True)
@@ -171,6 +205,63 @@ class ArchConfig:
     def tail_kinds(self) -> Tuple[str, ...]:
         rem = self.num_layers % len(self.pattern)
         return tuple(self.pattern[:rem])
+
+    @property
+    def sub_quadratic(self) -> bool:
+        """True if decode over very long context is O(1)/O(window) for most
+        layers (SSM / hybrid / windowed) -> long_500k applies."""
+        return all(k != GLOBAL_ATTN for k in self.pattern) or (
+            sum(k == GLOBAL_ATTN for k in self.pattern) < len(self.pattern) // 2
+        )
+
+    def supports_shape(self, shape: ShapeConfig) -> bool:
+        if shape.name == "long_500k":
+            return self.sub_quadratic
+        return True
+
+    def param_count(self) -> int:
+        """Approximate parameter count (embeddings included; the
+        reference's formula)."""
+        d, f = self.d_model, self.d_ff
+        qf = self.num_heads * self.head_dim
+        kvf = self.num_kv_heads * self.head_dim
+        attn = d * qf + 2 * d * kvf + qf * d
+        mlp = d * f * (3 if self.mlp_gated else 2)
+        total = 0
+        for kind in self.layer_kinds:
+            if kind in ATTN_KINDS:
+                total += attn
+                if self.moe is not None:
+                    e = self.moe.num_experts + (1 if self.moe.shared_expert else 0)
+                    total += e * mlp + d * self.moe.num_experts
+                else:
+                    total += mlp
+            elif kind == RECURRENT:
+                w = (self.rglru.lru_width or d) if self.rglru else d
+                total += 2 * d * w + w * d + 3 * w + mlp
+            elif kind == MAMBA:
+                di = d * self.ssm.expand
+                dtr = self.ssm.resolved_dt_rank(d)
+                total += (d * 2 * di + di * (dtr + 2 * self.ssm.d_state)
+                          + dtr * di + di * d + di * self.ssm.d_conv
+                          + di * self.ssm.d_state + di)
+        total += self.padded_vocab * d * (1 if self.tie_embeddings else 2)
+        if self.encoder_layers:
+            # encoder self-attn + ffn, decoder cross-attn
+            total += self.encoder_layers * (attn + mlp)
+            total += self.num_layers * attn      # cross attention
+        return total
+
+    def active_param_count(self) -> int:
+        """Parameters touched per token (MoE: only routed experts)."""
+        if self.moe is None:
+            return self.param_count()
+        d, f = self.d_model, self.d_ff
+        mlp = d * f * (3 if self.mlp_gated else 2)
+        e_total = self.moe.num_experts + (1 if self.moe.shared_expert else 0)
+        e_active = self.moe.top_k + (1 if self.moe.shared_expert else 0)
+        n_moe_layers = sum(1 for k in self.layer_kinds if k in ATTN_KINDS)
+        return self.param_count() - n_moe_layers * (e_total - e_active) * mlp
 
 
 def reduced(cfg: ArchConfig, *, layers: Optional[int] = None) -> ArchConfig:

@@ -65,6 +65,16 @@ columns.  Read noise is mesh-invariant: a rank draws the whole field
 from the state's key and keeps its window.  The reference's GSPMD concat
 workaround answers a jax miscompilation and has no counterpart here.
 
+Training on a mesh (``launch.train --devices``; the model's functions
+run under ``models.common.use_mesh``): the digital model runs on each
+rank's rows of the batch (``runtime.steps``), so while a training mesh
+is installed the drive scale is the max over its ``data`` axis -- the
+unsharded call's, since a row's output depends on its batch-mates
+through it -- and a rank evaluates its window of the lattice on its own
+rows; the ``model`` all_reduce completes the block-group sum as in
+serving, and no row gather follows.  The straight-through backward runs
+replicated over ``model``.
+
 Many device states of one tag (a sweep's draws, a fleet's chunk of
 devices) run as one forward, ``raw_matmul_many``: the drive depends only
 on the rows and their scale, which every state shares, so the states'
@@ -116,6 +126,7 @@ from repro_torch.nonideal.perturb import (apply_read_noise, perturb_plan,
 from repro_torch.nonideal.scenario import (Scenario, get_scenario,
                                            scenario_features,
                                            scenario_features_tiled)
+from repro_torch.models.common import current_mesh
 from repro_torch.obs import OBS
 from repro_torch.parallel.sharding import (MODEL_AXIS, DATA_AXIS,
                                            gather_deployment_state,
@@ -283,7 +294,11 @@ class AnalogExecutor:
 
     ``mesh`` (``parallel.sharding.serve_mesh``) serves the analog plane
     tensor-parallel; ``shard_scheme`` is ``"auto"`` (``lattice_scheme``),
-    or forces ``"col"``, ``"row"`` or ``"none"``.  ``mesh_times``, when a
+    or forces ``"col"``, ``"row"`` or ``"none"``.  While a training
+    mesh is installed (``models.common.use_mesh``) a call's rows are this
+    rank's share of the batch, already split over ``data``: the drive
+    scale is their max taken over ``data`` (the unsharded call's), and
+    the rows are neither split again nor gathered after.  ``mesh_times``, when a
     dict, collects the synchronized milliseconds of each sharded call's
     B1 launch (``"b1"``) and its collectives (``"all_reduce"``)."""
 
@@ -691,6 +706,8 @@ class AnalogExecutor:
                 and tuple(sfeat.shape[:2]) != (nb_l, no_l):
             sfeat = sfeat[win]
         B, dev = x2d.shape[0], x2d.device
+        if current_mesh() is not None:   # a training mesh: the rows are
+            dp, d = 1, 0                 # this rank's already
         rl = -(-B // dp)
         xl = x2d[d * rl:(d + 1) * rl]
         if xl.shape[0] < rl:
@@ -727,6 +744,8 @@ class AnalogExecutor:
         mesh, dev = self.mesh, s[0].device
         dp, tp = mesh_shape(mesh)
         d, t = mesh_coords(mesh)
+        if current_mesh() is not None:
+            dp = 1
         cols = plan.NO * plan.no
         with self._timed("all_reduce", dev):
             if scheme == "col":
@@ -1051,7 +1070,11 @@ class AnalogExecutor:
             plan = plan.with_g(apply_read_noise(g, self.acfg, rs, eps),
                                self.acfg)
         x2d = x2d.float()
-        x_scale = torch.clamp_min(torch.max(torch.abs(x2d)), 1e-9)
+        x_max = torch.max(torch.abs(x2d))
+        if current_mesh() is not None:
+            from repro_torch.parallel.train_mesh import data_max
+            x_max = data_max(x_max, current_mesh())
+        x_scale = torch.clamp_min(x_max, 1e-9)
         return self._sharded_matmul(x2d, x_scale, plan, eparams,
                                     sfeat), x_scale
 

@@ -13,8 +13,11 @@ and broadcasts CUDA tensors (it stages them through the host) but
 gathers none, so every collective of the serving plane is an
 ``all_reduce`` or a ``broadcast``; a rank's tensors stay on its card to
 compute.  Ranks that share a card share its memory and its time.
-``make_production_mesh`` (the dry run's 256- and 512-chip meshes) is not
-ported.
+
+``make_production_mesh`` is the dry run's 256- and 512-chip mesh by its
+axis names and sizes (``models.common.MeshShape``): a ``DeviceMesh`` of
+that many ranks needs a live group of them, and the dry run places
+leaves through the same functions as the trainer without one.
 """
 from __future__ import annotations
 
@@ -25,6 +28,16 @@ from typing import Callable, List, Optional
 import torch
 
 from repro_torch import DeviceLike, resolve_device
+
+
+def make_production_mesh(*, multi_pod: bool = False):
+    """16x16 = 256 chips per pod, ``("data", "model")``; 2 pods = 512
+    chips, ``("pod", "data", "model")``, when ``multi_pod``: the axis
+    names and sizes (``MeshShape``), rank 0's coordinates."""
+    from repro_torch.models.common import MeshShape
+    if multi_pod:
+        return MeshShape(("pod", "data", "model"), (2, 16, 16))
+    return MeshShape(("data", "model"), (16, 16))
 
 
 def make_mesh_for(devices: Optional[int] = None, *, model_axis: int = 1,

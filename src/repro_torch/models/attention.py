@@ -5,7 +5,10 @@ blockwise-softmax attention in plain PyTorch (port of
 Prefill uses a flat-head layout (B, S, Hq, D) with KV repeated to Hq
 heads; decode keeps the grouped (B, S, Hkv, D) cache.  Decode writes the
 new key/value into the cache IN PLACE (the reference's functional update
-donates the old cache; here the session owns the buffers).
+donates the old cache; here the session owns the buffers).  Under
+``ParallelConfig.decode_seq_shard`` on a mesh's model axis each rank
+holds ``S_max / tp`` of a global layer's cache and decode combines the
+ranks' partial softmaxes (``sharded_flash_decode``).
 
   global  : causal, blockwise online softmax over KV blocks
   local   : exact sliding window (2-chunk trick when S is a multiple of
@@ -23,9 +26,10 @@ import torch
 
 from repro_torch.configs.base import (ArchConfig, BIDIR_ATTN, CHUNKED_ATTN,
                                       GLOBAL_ATTN, LOCAL_ATTN)
-from repro_torch.models.common import (ParamSchema, apply_norm, apply_rope,
+from repro_torch.models.common import (P, ParamSchema, apply_norm,
+                                       apply_rope, axis_size, current_mesh,
                                        dense, dense_schema, einsum,
-                                       norm_schema)
+                                       mesh_coords, norm_schema)
 
 NEG_INF = -1e30
 
@@ -36,11 +40,12 @@ def attention_schema(cfg: ArchConfig, *, cross: bool = False):
     d, qf = cfg.d_model, cfg.num_heads * cfg.head_dim
     kvf = cfg.num_kv_heads * cfg.head_dim
     s = {"wq": dense_schema(d, qf), "wk": dense_schema(d, kvf),
-         "wv": dense_schema(d, kvf), "wo": dense_schema(qf, d)}
+         "wv": dense_schema(d, kvf),
+         "wo": dense_schema(qf, d, fsdp="model", tp="data")}
     if cfg.qkv_bias and not cross:
-        s["bq"] = ParamSchema((qf,), "zeros")
-        s["bk"] = ParamSchema((kvf,), "zeros")
-        s["bv"] = ParamSchema((kvf,), "zeros")
+        s["bq"] = ParamSchema((qf,), "zeros", spec=P("model"))
+        s["bk"] = ParamSchema((kvf,), "zeros", spec=P(None))
+        s["bv"] = ParamSchema((kvf,), "zeros", spec=P(None))
     if cfg.qk_norm:
         s["qnorm"] = norm_schema(cfg.head_dim, "rmsnorm")
         s["knorm"] = norm_schema(cfg.head_dim, "rmsnorm")
@@ -200,6 +205,47 @@ def decode_attention(q, ck, cv, valid_mask, cfg: ArchConfig):
     return o.permute(0, 3, 1, 2, 4).reshape(B, 1, cfg.num_heads, D)
 
 
+def sharded_flash_decode(q, ck, cv, pos, cfg: ArchConfig, *, mesh=None,
+                         tp_axis: str = "model"):
+    """Flash-decode with the cache's sequence sharded over ``tp_axis``:
+    ck/cv (B, S_max/tp, Hkv, D) are this rank's block of a global layer's
+    cache, slots ``[t * S_local, (t+1) * S_local)``; q (B, 1, Hq, D) is
+    the same on every rank.  Each rank takes a partial softmax over its
+    block (the positions ``<= pos`` valid, ``pos`` an int or a (B,) /
+    (B, 1) tensor); the partials combine by an ``all_reduce`` MAX of m
+    over the axis, then SUM of ``l * corr`` and ``o * corr``
+    (``corr = exp(m - M)``).  Without a mesh, or on an axis of one rank,
+    it is ``decode_attention`` over the whole cache."""
+    B, D = q.shape[0], q.shape[-1]
+    n_loc = ck.shape[1]
+    dev = q.device
+    pos = (pos.to(dev, torch.int64).reshape(-1, 1) if isinstance(
+        pos, torch.Tensor) else torch.full((1, 1), int(pos), device=dev))
+    tp = axis_size(tp_axis, mesh) if mesh is not None else 1
+    if tp <= 1:
+        return decode_attention(q, ck, cv,
+                                torch.arange(n_loc, device=dev)[None] <= pos,
+                                cfg)
+    off = mesh_coords(mesh)[tp_axis] * n_loc
+    g = cfg.num_heads // cfg.num_kv_heads
+    qg = q.reshape(B, 1, cfg.num_kv_heads, g, D)
+    s = einsum("bqhgd,bkhd->bhgqk", qg * (D ** -0.5), ck).float()
+    valid = (torch.arange(n_loc, device=dev)[None] + off) <= pos   # (B|1, S)
+    s = torch.where(valid[:, None, None, None, :], s, NEG_INF)
+    m = s.amax(dim=-1)
+    p = torch.exp(s - m[..., None])
+    l = p.sum(dim=-1)
+    o = einsum("bhgqk,bkhd->bhgqd", p.to(cv.dtype), cv).float()
+    from repro_torch.parallel.train_mesh import model_reduce
+    M = model_reduce(m.clone(), mesh, "max")
+    corr = torch.exp(m - M)
+    L = model_reduce(l * corr, mesh)
+    O = model_reduce(o * corr[..., None], mesh)
+    out = O / torch.clamp_min(L, 1e-20)[..., None]
+    out = out.permute(0, 3, 1, 2, 4)
+    return out.reshape(B, 1, cfg.num_heads, D).to(cv.dtype)
+
+
 def rope_base_for(cfg: ArchConfig, kind: str) -> float:
     if kind == GLOBAL_ATTN and cfg.rope_base_global:
         return cfg.rope_base_global
@@ -241,6 +287,18 @@ def attn_mixer(params, x, *, cfg: ArchConfig, pcfg, kind: str,
         k = apply_rope(k, pos, base)
         ck, cv = cache["k"], cache["v"]
         n_slots = ck.shape[1]
+        mesh = current_mesh()
+        if (kind == GLOBAL_ATTN and getattr(pcfg, "decode_seq_shard", False)
+                and mesh is not None and axis_size("model", mesh) > 1):
+            # this rank holds slots [t * n, (t+1) * n) of the cache: it
+            # writes the rows whose position falls there
+            loc = pos[:, 0] - mesh_coords(mesh)["model"] * n_slots
+            mine = (loc >= 0) & (loc < n_slots)
+            ck[mine, loc[mine]] = k[mine, 0].to(ck.dtype)
+            cv[mine, loc[mine]] = v[mine, 0].to(cv.dtype)
+            o = sharded_flash_decode(q, ck, cv, pos, cfg, mesh=mesh,
+                                     tp_axis=getattr(pcfg, "tp_axis", "model"))
+            return _out_proj(params, o, cfg), {"k": ck, "v": cv}
         slot = pos % n_slots                          # (B, 1)
         rows = torch.arange(B, device=dev)
         ck[rows, slot[:, 0]] = k[:, 0].to(ck.dtype)   # in place, see docstring
@@ -283,8 +341,11 @@ def attn_mixer(params, x, *, cfg: ArchConfig, pcfg, kind: str,
 
 
 def attn_cache_schema(cfg: ArchConfig, kind: str, batch: int, s_max: int,
-                      dtype=torch.bfloat16):
-    """{"k", "v"}: (shape, dtype) of one attention layer's decode cache."""
+                      dtype=torch.bfloat16, *, seq_shard: bool = False):
+    """{"k", "v"}: (shape, dtype, spec) of one attention layer's decode
+    cache; ``seq_shard`` places a global layer's sequence on model."""
     size = s_max if kind == GLOBAL_ATTN else min(cfg.window, s_max)
+    seq_axis = "model" if (seq_shard and kind == GLOBAL_ATTN) else None
     shape = (batch, size, cfg.num_kv_heads, cfg.head_dim)
-    return {"k": (shape, dtype), "v": (shape, dtype)}
+    spec = P(("pod", "data"), seq_axis, None, None)
+    return {"k": (shape, dtype, spec), "v": (shape, dtype, spec)}

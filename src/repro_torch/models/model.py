@@ -34,11 +34,14 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ArchConfig, BIDIR_ATTN
-from repro_torch.models.blocks import apply_layer, layer_schema, layer_cache_schema
-from repro_torch.models.common import (ParamSchema, apply_norm,
-                                       current_dense_hook, dense, einsum,
-                                       norm_schema, scan_states_provider,
-                                       stack_schema, use_dense_hook)
+from repro_torch.models.blocks import (apply_layer, layer_cache_schema,
+                                       layer_schema, seq_ops)
+from repro_torch.models.common import (P, ParamSchema, axis_size,
+                                       current_dense_hook, current_mesh,
+                                       dense, einsum, norm_schema,
+                                       scan_states_provider, shard_shape,
+                                       stack_schema, use_dense_hook,
+                                       use_mesh)
 
 NEG_INF = -1e30
 
@@ -47,13 +50,16 @@ def model_schema(cfg: ArchConfig) -> Dict[str, Any]:
     d, vp = cfg.d_model, cfg.padded_vocab
     cross = cfg.encoder_layers > 0
     s: Dict[str, Any] = {
-        "embed": ParamSchema((vp, d), "embed", d ** -0.5),
+        "embed": ParamSchema((vp, d), "embed", d ** -0.5,
+                             spec=P("model", "data")),
         "final_norm": norm_schema(d, cfg.norm),
     }
     if not cfg.tie_embeddings:
-        s["head"] = ParamSchema((d, vp), "normal", d ** -0.5)
+        s["head"] = ParamSchema((d, vp), "normal", d ** -0.5,
+                                spec=P("data", "model"))
     if cfg.frontend == "vision":
-        s["proj"] = ParamSchema((d, d), "normal", d ** -0.5)
+        s["proj"] = ParamSchema((d, d), "normal", d ** -0.5,
+                                spec=P("data", "model"))
     scan: Dict[str, Any] = {}
     if cfg.num_periods > 0:
         for i, kind in enumerate(cfg.pattern):
@@ -71,33 +77,38 @@ def model_schema(cfg: ArchConfig) -> Dict[str, Any]:
 
 
 def model_cache_schema(cfg: ArchConfig, batch: int, s_max: int, *,
-                       cross_len: int = 0, dtype=None):
+                       seq_shard: bool = False, cross_len: int = 0,
+                       dtype=None):
     """{scan: {p_i: stacked cache schema}, tail: {t_i: ...}} of
-    (shape, dtype) leaves; ``cross_len``: each decoder layer's cross
-    cache holds that many encoder positions."""
+    (shape, dtype, spec) leaves; ``cross_len``: each decoder layer's
+    cross cache holds that many encoder positions; ``seq_shard``: a
+    global layer's cache sequence is placed on model
+    (``ParallelConfig.decode_seq_shard``)."""
     def stack_leaf(node, n):
         if isinstance(node, tuple):
-            return ((n,) + tuple(node[0]), node[1])
+            return ((n,) + tuple(node[0]), node[1], P(None, *node[2]))
         return {k: stack_leaf(v, n) for k, v in node.items()}
 
+    kw = dict(cross_len=cross_len, seq_shard=seq_shard, dtype=dtype)
     scan = {}
     if cfg.num_periods > 0:
         for i, kind in enumerate(cfg.pattern):
             scan[f"p{i}"] = stack_leaf(
-                layer_cache_schema(cfg, kind, batch, s_max,
-                                   cross_len=cross_len, dtype=dtype),
+                layer_cache_schema(cfg, kind, batch, s_max, **kw),
                 cfg.num_periods)
-    tail = {f"t{i}": layer_cache_schema(cfg, kind, batch, s_max,
-                                        cross_len=cross_len, dtype=dtype)
+    tail = {f"t{i}": layer_cache_schema(cfg, kind, batch, s_max, **kw)
             for i, kind in enumerate(cfg.tail_kinds)}
     return {"scan": scan, "tail": tail}
 
 
-def zeros_cache(cache_schema, device):
+def zeros_cache(cache_schema, device, mesh=None):
+    """Zero tensors of a cache schema's leaves: the whole cache, or with
+    ``mesh`` this rank's window of each leaf (``shard_shape``)."""
     if isinstance(cache_schema, tuple):
-        return torch.zeros(cache_schema[0], dtype=cache_schema[1],
-                           device=device)
-    return {k: zeros_cache(v, device) for k, v in cache_schema.items()}
+        shape = (cache_schema[0] if mesh is None else
+                 shard_shape(cache_schema[0], cache_schema[2], mesh))
+        return torch.zeros(shape, dtype=cache_schema[1], device=device)
+    return {k: zeros_cache(v, device, mesh) for k, v in cache_schema.items()}
 
 
 def _select(tree, p):
@@ -138,15 +149,16 @@ def _save_dots(ctx, op, *args, **kwargs):
 
 
 def _in_this_context(fn):
-    """``fn`` run under the dense hook installed where it was wrapped.  A
-    checkpoint recomputes in backward, on the autograd engine's thread
-    for a CUDA graph, where this thread's hook (``use_dense_hook``) is not
-    installed: without it the recompute would run an analog site
-    digitally."""
-    hook = current_dense_hook()
+    """``fn`` run under the dense hook and the mesh installed where it was
+    wrapped.  A checkpoint recomputes in backward, on the autograd
+    engine's thread for a CUDA graph, where this thread's hook
+    (``use_dense_hook``) and mesh (``use_mesh``) are not installed:
+    without them the recompute would run an analog site digitally, or a
+    split product whole."""
+    hook, mesh = current_dense_hook(), current_mesh()
 
     def run(*args):
-        with use_dense_hook(hook):
+        with use_dense_hook(hook), use_mesh(mesh):
             return fn(*args)
 
     return run
@@ -205,7 +217,7 @@ def _remat_wrap(fn, remat: str, one_token):
 
 def _run_stack(stack_params, x, *, cfg: ArchConfig, pcfg, pattern,
                tail_kinds, mode, caches, pos, positions, enc_out=None,
-               scan_group: str = "dec"):
+               scan_group: str = "dec", seq_shard: bool = False):
     """Stacked periods (a Python loop) + unrolled tail.  Returns
     (x, aux, new_caches): ``aux`` sums the layers' auxiliary losses in
     the reference's order (a float32 scalar with an MoE FFN, else the
@@ -218,7 +230,9 @@ def _run_stack(stack_params, x, *, cfg: ArchConfig, pcfg, pattern,
     scope is entered inside the checkpointed function, so a recompute
     keys its sites as the first pass did (under ``"dots"`` with a dense
     hook, see ``_remat_wrap``'s one-token runs).  ``enc_out`` is what a
-    decoder layer's cross attention reads (train and prefill)."""
+    decoder layer's cross attention reads (train and prefill).
+    ``seq_shard``: ``x`` is a model rank's block of the sequence, and so
+    is what a period keeps for its recompute (``blocks.apply_layer``)."""
     provider = scan_states_provider()
     new_caches: Dict[str, Any] = {"scan": {}, "tail": {}}
     scan_params = stack_params["scan"]
@@ -233,7 +247,7 @@ def _run_stack(stack_params, x, *, cfg: ArchConfig, pcfg, pattern,
                 x, nc, a = apply_layer(lp[f"p{i}"], x, cfg=cfg, pcfg=pcfg,
                                        kind=kind, mode=mode, cache=lc,
                                        pos=pos, positions=positions,
-                                       enc_out=enc_out)
+                                       enc_out=enc_out, seq_shard=seq_shard)
                 aux = aux + a
                 if nc is not None:
                     ncs[f"p{i}"] = nc
@@ -267,7 +281,8 @@ def _run_stack(stack_params, x, *, cfg: ArchConfig, pcfg, pattern,
         lc = caches["tail"].get(f"t{i}") if mode == "decode" else None
         x, nc, a = apply_layer(stack_params["tail"][f"t{i}"], x, cfg=cfg,
                                pcfg=pcfg, kind=kind, mode=mode, cache=lc,
-                               pos=pos, positions=positions, enc_out=enc_out)
+                               pos=pos, positions=positions, enc_out=enc_out,
+                               seq_shard=seq_shard)
         aux = aux + a
         if nc is not None:
             new_caches["tail"][f"t{i}"] = nc
@@ -291,11 +306,36 @@ def encode(params, enc_frames, *, cfg: ArchConfig, pcfg):
     one-token warm pass slices."""
     positions = torch.arange(enc_frames.shape[1],
                              device=enc_frames.device)[None, :]
+    x, sharded = _seq_split(enc_frames, pcfg, "train")
     x, aux, _ = _run_stack(
-        {"scan": params["encoder"]["scan"], "tail": {}}, enc_frames, cfg=cfg,
+        {"scan": params["encoder"]["scan"], "tail": {}}, x, cfg=cfg,
         pcfg=pcfg, pattern=(BIDIR_ATTN,), tail_kinds=(), mode="train",
-        caches=None, pos=None, positions=positions, scan_group="enc")
-    return apply_norm(params["encoder"]["final_norm"], x, cfg.norm), aux
+        caches=None, pos=None, positions=positions, scan_group="enc",
+        seq_shard=sharded)
+    x = seq_ops(sharded, cfg)[2](params["encoder"]["final_norm"], x)
+    return _seq_join(x, sharded), aux
+
+
+def _seq_split(x, pcfg, mode: str):
+    """(x, sharded): ``x`` cut to this model rank's block of the sequence
+    where ``pcfg.residual_seq_shard`` holds on a training mesh's model
+    axis outside decode (and the axis divides the sequence; else the
+    stream stays whole, as the reference's sanitized spec leaves it)."""
+    mesh = current_mesh()
+    tp = axis_size("model", mesh) if mesh is not None else 1
+    if (tp <= 1 or mode == "decode" or x.shape[1] % tp
+            or not getattr(pcfg, "residual_seq_shard", False)):
+        return x, False
+    from repro_torch.parallel.train_mesh import seq_scatter
+    return seq_scatter(x, mesh), True
+
+
+def _seq_join(x, sharded: bool):
+    """The whole sequence of a ``_seq_split`` stream."""
+    if not sharded:
+        return x
+    from repro_torch.parallel.train_mesh import seq_gather
+    return seq_gather(x, current_mesh())
 
 
 def forward(params, tokens, *, cfg: ArchConfig, pcfg, mode: str = "train",
@@ -325,12 +365,13 @@ def forward(params, tokens, *, cfg: ArchConfig, pcfg, mode: str = "train",
         x = torch.cat([img, x[:, n:]], dim=1)
     positions = (None if mode == "decode" else
                  torch.arange(tokens.shape[1], device=tokens.device)[None, :])
+    x, sharded = _seq_split(x, pcfg, mode)
     x, aux_d, new_caches = _run_stack(
         params["decoder"], x, cfg=cfg, pcfg=pcfg, pattern=cfg.pattern,
         tail_kinds=cfg.tail_kinds, mode=mode, caches=cache, pos=pos,
-        positions=positions, enc_out=enc_out)
+        positions=positions, enc_out=enc_out, seq_shard=sharded)
     aux = aux + aux_d
-    x = apply_norm(params["final_norm"], x, cfg.norm)
+    x = _seq_join(seq_ops(sharded, cfg)[2](params["final_norm"], x), sharded)
     if not isinstance(aux, torch.Tensor):
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return x, (new_caches if mode in ("prefill", "decode") else None), aux
@@ -359,6 +400,15 @@ def chunked_xent(params, h, targets, mask, *, cfg: ArchConfig,
     """Mean xent (plus ``z_coef * lse**2``) over the masked positions; the
     logits live one sequence chunk at a time, each chunk recomputed in
     backward (the reference's ``jax.checkpoint`` per chunk)."""
+    loss_sum, denom = xent_sums(params, h, targets, mask, cfg=cfg,
+                                chunk=chunk, z_coef=z_coef)
+    return loss_sum / torch.clamp_min(denom, 1.0)
+
+
+def xent_sums(params, h, targets, mask, *, cfg: ArchConfig, chunk: int,
+              z_coef: float = 0.0):
+    """``chunked_xent``'s masked sum and the mask's sum, float32
+    scalars."""
     B, S, D = h.shape
     ck = min(chunk, S)
     if S % ck != 0:
@@ -383,21 +433,38 @@ def chunked_xent(params, h, targets, mask, *, cfg: ArchConfig,
                 chunk_fn(h[:, sl], targets[:, sl], mask[:, sl]))
         loss_sum = loss_sum + l
         denom = denom + m
-    return loss_sum / torch.clamp_min(denom, 1.0)
+    return loss_sum, denom
 
 
 def lm_loss(params, batch, *, cfg: ArchConfig, pcfg,
             compute_dtype=torch.bfloat16, z_coef: float = 1e-4):
     """batch: {tokens, targets, mask, [image_embeds], [enc_frames]}.
     Returns (xent + aux, {"xent", "aux"}); aux is the MoE FFNs'
-    load-balancing loss (0 without one)."""
+    load-balancing loss (0 without one).
+
+    On a training mesh (``use_mesh``) the batch is this rank's rows, and
+    the first value is this data rank's share of the loss, what its
+    backward differentiates: its rows' masked sum over the WHOLE batch's
+    mask count (summed over data: the mean of per-rank means is not the
+    loss, the mask being random), plus aux / dp (an MoE mixer routes
+    over the whole batch, so aux is the whole batch's on every data
+    rank).  The shares add up over data to the loss, and so do their
+    gradients.  The parts are the whole batch's xent and aux."""
     h, _, aux = forward(params, batch["tokens"], cfg=cfg, pcfg=pcfg,
                         mode="train", image_embeds=batch.get("image_embeds"),
                         enc_frames=batch.get("enc_frames"),
                         compute_dtype=compute_dtype)
-    loss = chunked_xent(params, h, batch["targets"], batch["mask"], cfg=cfg,
-                        chunk=pcfg.xent_chunk, z_coef=z_coef)
-    return loss + aux, {"xent": loss, "aux": aux}
+    num, den = xent_sums(params, h, batch["targets"], batch["mask"], cfg=cfg,
+                         chunk=pcfg.xent_chunk, z_coef=z_coef)
+    mesh = current_mesh()
+    dp = 1 if mesh is None else axis_size(("pod", "data"), mesh)
+    if dp <= 1:
+        loss = num / torch.clamp_min(den, 1.0)
+        return loss + aux, {"xent": loss, "aux": aux}
+    from repro_torch.parallel.train_mesh import data_sum
+    share = num / torch.clamp_min(data_sum(den, mesh), 1.0)
+    return share + aux / dp, {"xent": data_sum(share, mesh),
+                              "aux": aux.detach()}
 
 
 def prefill(params, tokens, *, cfg: ArchConfig, pcfg, image_embeds=None,

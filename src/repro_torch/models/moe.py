@@ -1,6 +1,7 @@
 """Mixture-of-Experts FFN with capacity-based scatter dispatch (port of
-``repro.models.moe``; the reference's sharding hints have nothing to
-shard on one device).
+``repro.models.moe``).  On a training mesh the mixer routes over the
+whole batch's tokens (``moe_mixer``); its experts run replicated over
+the model axis.
 
 Dispatch is the GShard/Switch capacity scheme as a scatter/gather:
   pos_in_expert = cumsum(onehot(assign)) - 1     (token-major, then k)
@@ -20,21 +21,26 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig, MoEConfig
-from repro_torch.models.common import ParamSchema, activation, dense_schema
+from repro_torch.models.common import (P, ParamSchema, activation,
+                                       current_mesh, dense_schema)
 
 
 def moe_schema(cfg: ArchConfig):
     d, f, e = cfg.d_model, cfg.d_ff, cfg.moe.num_experts
     s = {
-        "router": ParamSchema((d, e), "normal", d ** -0.5),
-        "w_up": ParamSchema((e, d, f), "normal", d ** -0.5),
-        "w_down": ParamSchema((e, f, d), "normal", f ** -0.5),
+        "router": ParamSchema((d, e), "normal", d ** -0.5,
+                              spec=P(None, None)),
+        "w_up": ParamSchema((e, d, f), "normal", d ** -0.5,
+                            spec=P("model", "data", None)),
+        "w_down": ParamSchema((e, f, d), "normal", f ** -0.5,
+                              spec=P("model", None, "data")),
     }
     if cfg.mlp_gated:
-        s["w_gate"] = ParamSchema((e, d, f), "normal", d ** -0.5)
+        s["w_gate"] = ParamSchema((e, d, f), "normal", d ** -0.5,
+                                  spec=P("model", "data", None))
     if cfg.moe.shared_expert:
         s["shared_up"] = dense_schema(d, f)
-        s["shared_down"] = dense_schema(f, d)
+        s["shared_down"] = dense_schema(f, d, fsdp="model", tp="data")
         if cfg.mlp_gated:
             s["shared_gate"] = dense_schema(d, f)
     return s
@@ -90,7 +96,23 @@ def moe_mixer(params, x: torch.Tensor, *, cfg: ArchConfig, pcfg=None,
               train: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (B, S, D).  Returns (y (B, S, D), the Switch load-balancing aux
     loss, a float32 scalar).  The capacity counts the whole call's
-    tokens (T = B*S), so a token's output depends on its batch-mates."""
+    tokens (T = B*S), so a token's output depends on its batch-mates.
+
+    On a training mesh with a data axis, ``x`` is this rank's rows: the
+    mixer routes over every data rank's tokens (``gather_rows``), so the
+    capacity, the drops in the global (t, k) order and the aux loss are
+    the unsharded step's, and returns this rank's rows of y."""
+    mesh = current_mesh()
+    if mesh is not None:
+        from repro_torch.parallel.train_mesh import (data_size, gather_rows,
+                                                     local_rows)
+        if data_size(mesh) > 1:
+            y, aux = _moe(params, gather_rows(x, mesh), cfg, train)
+            return local_rows(y, mesh), aux
+    return _moe(params, x, cfg, train)
+
+
+def _moe(params, x: torch.Tensor, cfg: ArchConfig, train: bool):
     mcfg = cfg.moe
     B, S, D = x.shape
     T = B * S

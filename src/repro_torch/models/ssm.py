@@ -26,8 +26,8 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.linear_scan import ops as scan_ops
-from repro_torch.models.common import (ParamSchema, dense_schema, einsum,
-                                       gelu, sigmoid, silu)
+from repro_torch.models.common import (P, ParamSchema, dense_schema,
+                                       einsum, gelu, sigmoid, silu)
 
 
 def softplus(x: torch.Tensor) -> torch.Tensor:
@@ -81,14 +81,17 @@ def mamba_schema(cfg: ArchConfig):
     di, n, k, dtr = mamba_dims(cfg)
     return {
         "in_proj": dense_schema(d, 2 * di),
-        "conv_w": ParamSchema((k, di), "normal", k ** -0.5),
-        "conv_b": ParamSchema((di,), "zeros"),
-        "x_proj": ParamSchema((di, dtr + 2 * n), "normal", di ** -0.5),
-        "dt_proj": ParamSchema((dtr, di), "normal", dtr ** -0.5),
-        "dt_bias": ParamSchema((di,), "ones"),
-        "A_log": ParamSchema((di, n), "ones"),
-        "D": ParamSchema((di,), "ones"),
-        "out_proj": dense_schema(di, d),
+        "conv_w": ParamSchema((k, di), "normal", k ** -0.5,
+                              spec=P(None, "model")),
+        "conv_b": ParamSchema((di,), "zeros", spec=P("model")),
+        "x_proj": ParamSchema((di, dtr + 2 * n), "normal", di ** -0.5,
+                              spec=P("model", None)),
+        "dt_proj": ParamSchema((dtr, di), "normal", dtr ** -0.5,
+                               spec=P(None, "model")),
+        "dt_bias": ParamSchema((di,), "ones", spec=P("model")),
+        "A_log": ParamSchema((di, n), "ones", spec=P("model", None)),
+        "D": ParamSchema((di,), "ones", spec=P("model")),
+        "out_proj": dense_schema(di, d, fsdp="model", tp="data"),
     }
 
 
@@ -137,8 +140,9 @@ def mamba_mixer(params, x, *, cfg: ArchConfig, pcfg, cache=None,
 
 def mamba_cache_schema(cfg: ArchConfig, batch: int, dtype=torch.bfloat16):
     di, N, K, _ = mamba_dims(cfg)
-    return {"conv": ((batch, K - 1, di), dtype),
-            "h": ((batch, di, N), torch.float32)}
+    return {"conv": ((batch, K - 1, di), dtype,
+                     P(("pod", "data"), None, "model")),
+            "h": ((batch, di, N), torch.float32, P(("pod", "data"), "model"))}
 
 
 # --------------------------------------------------------------------------- #
@@ -154,14 +158,15 @@ def rglru_schema(cfg: ArchConfig):
     return {
         "in_x": dense_schema(d, w),
         "in_gate": dense_schema(d, w),
-        "conv_w": ParamSchema((k, w), "normal", k ** -0.5),
-        "conv_b": ParamSchema((w,), "zeros"),
+        "conv_w": ParamSchema((k, w), "normal", k ** -0.5,
+                              spec=P(None, "model")),
+        "conv_b": ParamSchema((w,), "zeros", spec=P("model")),
         "w_i": dense_schema(w, w),
-        "b_i": ParamSchema((w,), "zeros"),
+        "b_i": ParamSchema((w,), "zeros", spec=P("model")),
         "w_r": dense_schema(w, w),
-        "b_r": ParamSchema((w,), "zeros"),
-        "lam": ParamSchema((w,), "ones"),
-        "out": dense_schema(w, d),
+        "b_r": ParamSchema((w,), "zeros", spec=P("model")),
+        "lam": ParamSchema((w,), "ones", spec=P("model")),
+        "out": dense_schema(w, d, fsdp="model", tp="data"),
     }
 
 
@@ -207,5 +212,6 @@ def rglru_mixer(params, x, *, cfg: ArchConfig, pcfg, cache=None,
 def rglru_cache_schema(cfg: ArchConfig, batch: int, dtype=torch.bfloat16):
     w = cfg.rglru.lru_width or cfg.d_model
     k = cfg.rglru.d_conv
-    return {"conv": ((batch, k - 1, w), dtype),
-            "h": ((batch, w), torch.float32)}
+    return {"conv": ((batch, k - 1, w), dtype,
+                     P(("pod", "data"), None, "model")),
+            "h": ((batch, w), torch.float32, P(("pod", "data"), "model"))}

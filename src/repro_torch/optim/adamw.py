@@ -54,16 +54,21 @@ def global_norm(tree) -> torch.Tensor:
 
 
 @torch.no_grad()
-def adamw_update(params, grads, opt, step, tcfg: TrainConfig
+def adamw_update(params, grads, opt, step, tcfg: TrainConfig, gnorm=None
                  ) -> Tuple[Any, Dict[str, Any], Dict[str, torch.Tensor]]:
     """One AdamW step, in place.  ``grads`` mirrors ``params`` (any float
     dtype); ``opt`` is ``{"m", "v"}`` of float32 trees; ``step`` the
-    step's index (an int or a 0-dim tensor).  Returns (params, opt,
-    {"gnorm", "lr"}), the first two the trees passed in."""
+    step's index (an int or a 0-dim tensor).  ``gnorm``, the clip's
+    global norm, defaults to ``global_norm(grads)``; a sharded step
+    passes the norm over every rank's windows
+    (``parallel.train_mesh.global_norm``), each rank's trees being its
+    windows.  Returns (params, opt, {"gnorm", "lr"}), the first two the
+    trees passed in."""
     ps, gs = tree_leaves(params), tree_leaves(grads)
     ms, vs = tree_leaves(opt["m"]), tree_leaves(opt["v"])
     dev = ps[0].device
-    gnorm = global_norm(grads)
+    if gnorm is None:
+        gnorm = global_norm(grads)
     clip = torch.clamp_max(_f32(tcfg.grad_clip, dev)
                            / torch.clamp_min(gnorm, 1e-9), 1.0)
     lr = lr_schedule(step, tcfg, dev)

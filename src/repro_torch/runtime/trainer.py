@@ -12,10 +12,22 @@
     still being written, so a failure right after an async save resumes
     from it
 
+  * elastic re-scale: checkpoints are mesh-agnostic -- ``remesh``
+    returns a trainer on a new mesh (or none) over the same checkpoints
+
 The step closure is built once per trainer; ``builds`` counts it (the
-port's compiles are builds, ROADMAP "The sentinel watches builds").  A
-mesh and ``remesh`` (elastic re-scaling) wait for tensor parallelism
-(ROADMAP A11).
+port's compiles are builds, ROADMAP "The sentinel watches builds").
+
+On a mesh (``mesh=``, a ``DeviceMesh`` of ``data`` and ``model`` over
+the ranks of a process group, ``launch.mesh.make_mesh_for``) every rank
+runs its own ``Trainer`` on the same mesh, data and checkpoint
+directory: each holds its window of the state and its rows of each
+batch (``runtime.steps``), the metrics are the whole batch's on every
+rank, each rank keeps its own straggler monitor, and rank 0 writes the
+checkpoints and the log.  The fault hook is called with the step on
+every rank, and a ``SimulatedFailure`` must be raised on every rank at
+the same step: a rank that fails alone leaves the others waiting in a
+collective, and recovering it needs a new process group.
 """
 from __future__ import annotations
 
@@ -62,11 +74,6 @@ class StragglerMonitor:
         return slow
 
 
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP A11: "
-                               "tensor parallelism)")
-
-
 @dataclass
 class Trainer:
     cfg: ArchConfig
@@ -80,11 +87,17 @@ class Trainer:
     device: DeviceLike = None
 
     def __post_init__(self):
+        self.rank, specs = 0, None
         if self.mesh is not None:
-            raise _not_ported("training on a mesh")
+            import torch.distributed as dist
+            from repro_torch.parallel.train_mesh import check_training_mesh
+            check_training_mesh(self.mesh)
+            self.rank = dist.get_rank()
+            specs = S.train_state_specs(self.cfg, self.mesh)
         self.device = resolve_device(self.device)
         self.ckpt = CheckpointManager(self.ckpt_dir,
-                                      keep=self.tcfg.keep_checkpoints)
+                                      keep=self.tcfg.keep_checkpoints,
+                                      mesh=self.mesh, specs=specs)
         self.monitor = StragglerMonitor()
         self.restarts = 0
         self.builds = 0
@@ -93,7 +106,8 @@ class Trainer:
 
     # ------------------------------------------------------------------ #
     def _build(self):
-        self._step = S.make_train_step(self.cfg, self.pcfg, self.tcfg)
+        self._step = S.make_train_step(self.cfg, self.pcfg, self.tcfg,
+                                       mesh=self.mesh)
         self.builds += 1
 
     def _init_or_restore(self):
@@ -103,14 +117,25 @@ class Trainer:
         # save)
         self.ckpt.wait()
         if self.ckpt.latest_step() is not None:
-            state, at = self.ckpt.restore(S.abstract_train_state(self.cfg),
-                                          device=self.device)
+            state, at = self.ckpt.restore(
+                S.abstract_train_state(self.cfg, self.mesh),
+                device=self.device)
             return state, int(at)
-        return S.init_train_state(self.tcfg.seed, self.cfg, self.device), 0
+        return S.init_train_state(self.tcfg.seed, self.cfg, self.device,
+                                  mesh=self.mesh), 0
 
     def _put_batch(self, batch: Dict[str, np.ndarray]):
+        """The batch on the device: on a mesh, this rank's rows
+        (``train_mesh.batch_rows``)."""
+        rows = None
+        if self.mesh is not None:
+            from repro_torch.parallel.train_mesh import batch_rows
+            n = next(iter(batch.values())).shape[0]
+            rows = batch_rows(n, self.mesh, self.pcfg.grad_accum).numpy()
         out = {}
         for k, v in batch.items():
+            if rows is not None:
+                v = v[rows]
             t = torch.from_numpy(np.ascontiguousarray(v))
             if k in ("tokens", "targets"):
                 t = t.long()
@@ -140,7 +165,7 @@ class Trainer:
                        "gnorm": float(metrics["gnorm"]),
                        "lr": float(metrics["lr"]), "straggler": slow}
                 self.metrics_log.append(rec)
-                if self.log_path:
+                if self.log_path and self.rank == 0:
                     with open(self.log_path, "a") as f:
                         f.write(json.dumps(rec) + "\n")
                 step += 1
@@ -150,7 +175,8 @@ class Trainer:
                 self.restarts += 1
                 state, step = self._recover()
             except KeyboardInterrupt:
-                self.ckpt.save(state, step)
+                if self.mesh is None:    # a save on a mesh is collective
+                    self.ckpt.save(state, step)
                 raise
         self.ckpt.wait()
         return {"final_step": step, "restarts": self.restarts,
@@ -164,5 +190,11 @@ class Trainer:
 
     # ------------------------------------------------------------------ #
     def remesh(self, new_mesh) -> "Trainer":
-        """Elastic re-scale onto a new mesh: not ported (ROADMAP A11)."""
-        raise _not_ported("Trainer.remesh")
+        """Elastic re-scale: the same checkpoints on a new mesh, e.g. after
+        losing ranks (every rank of the new mesh calls it), or on none
+        (one process calls it).  The new trainer has no fault hook."""
+        self.ckpt.join()
+        return Trainer(cfg=self.cfg, pcfg=self.pcfg, tcfg=self.tcfg,
+                       mesh=new_mesh, data=self.data, ckpt_dir=self.ckpt_dir,
+                       fault_hook=None, log_path=self.log_path,
+                       device=self.device)

@@ -107,7 +107,8 @@ print('MISSING', [m for m in NEW if m not in sys.modules])
             "repro_torch.checkpoint.manager", "repro_torch.data.pipeline",
             "repro_torch.parallel.collectives",
             "repro_torch.parallel.sharding", "repro_torch.launch.mesh",
-            "repro_torch.kernels.autotune"]
+            "repro_torch.kernels.autotune", "repro_torch.parallel.train_mesh",
+            "repro_torch.launch.dryrun"]
     new += ["repro_torch.obs" + m for m in ("", ".trace", ".registry",
                                             ".export", ".sentinel")]
     new += [f"repro_torch.kernels.{k}.{m}"

@@ -134,8 +134,9 @@ def test_async_checkpoint_holds_the_state_of_its_step(tmp_path,
 @pytest.mark.parametrize("knob", [{"grad_compression": "int8"},
                                   {"param_dtype": "bfloat16"}])
 def test_unported_parallel_knobs_raise(knob):
-    """Values the port does not read yet raise, naming the queue item that
-    brings their reader, instead of silently changing nothing."""
+    """Values no step of the reference reads raise, naming the queue item
+    that struck their wiring (ROADMAP A11), instead of silently changing
+    nothing."""
     with pytest.raises(NotImplementedError, match="A11"):
         ParallelConfig(**knob)
 
@@ -208,12 +209,19 @@ def test_trainer_resume_across_instances(tmp_path):
 
 
 def test_trainer_mesh_and_remesh_raise(tmp_path):
-    with pytest.raises(NotImplementedError, match="A11"):
+    """A mesh is a ``DeviceMesh`` (training on one is
+    ``tests/test_torch_train_mesh.py``'s): anything else raises, at
+    construction and through ``remesh``; ``remesh(None)`` is a trainer
+    without a mesh on the same checkpoints."""
+    with pytest.raises(TypeError, match="DeviceMesh"):
         Trainer(cfg=reduced(get_config("gemma3-1b")), pcfg=PCFG,
                 tcfg=TrainConfig(), mesh=object(), data=None,
                 ckpt_dir=str(tmp_path), device="cpu")
-    with pytest.raises(NotImplementedError, match="A11"):
-        small_trainer(tmp_path).remesh(object())
+    tr = small_trainer(tmp_path)
+    with pytest.raises(TypeError, match="DeviceMesh"):
+        tr.remesh(object())
+    tr2 = tr.remesh(None)
+    assert tr2.mesh is None and tr2.ckpt_dir == tr.ckpt_dir
 
 
 # --------------------------------------------------------------------------- #
@@ -293,6 +301,7 @@ def test_train_cli_reduced_on_the_cpu(tmp_path, capsys):
     assert trainer.ckpt.all_steps() == [10, 12]
     assert os.path.isdir(tmp_path / "ckpt" / "step_00000012")
     base = ["--arch", "gemma3-1b", "--reduced", "--device", "cpu"]
-    for flag in (["--devices", "2"], ["--model-axis", "2"]):
-        with pytest.raises(NotImplementedError, match="A11"):
+    for flag in (["--devices", "3", "--model-axis", "2"],
+                 ["--model-axis", "2"]):
+        with pytest.raises(SystemExit):
             train.main(base + flag)
