@@ -87,14 +87,16 @@ statistics.  The reference's ``calibrate`` draws its own probes; here
 ``calibration_budget`` applies the reference's cold/warm probe count.
 
 Telemetry (``repro_torch.obs``, at the reference's names): the plan and
-state caches' hits and misses, the calibration fit, each matmul's call
-and host-side time, and the builds -- the port compiles nothing, so
-``analog_unified_builds_total`` counts the conductance-plan builds (the
-reference's per-(tag, weight) forward) and ``analog_traces_total`` the
-read-plan builds (what each newly served state costs).  ``builds`` and
-``calls`` are the executor's own counts of the same events, kept whether
-telemetry is on or off; ``RecompileSentinel(executor=...)`` watches
-``builds``.  No instrument reads a tensor or synchronizes the device.
+state caches' hits and misses (a plan-cache miss is a conductance-plan
+build, the reference's per-(tag, weight) forward), the calibration fit,
+each matmul's call count and its span ``analog_matmul`` (labelled by
+``tag``: the host's time to enqueue the call's launches, and a record on
+the clock a device trace is tied to), and ``analog_traces_total``, the
+read-plan builds (what each newly served state costs) -- the port
+compiles nothing.  ``builds`` and ``calls`` are the executor's own counts
+of the same events, kept whether telemetry is on or off;
+``RecompileSentinel(executor=...)`` watches ``builds``.  No instrument
+reads a tensor or synchronizes the device.
 """
 from __future__ import annotations
 
@@ -875,9 +877,6 @@ class AnalogExecutor:
             OBS.counter("analog_plan_cache_total",
                         "conductance-plan cache lookups per weight tag",
                         tag=tag or "<anon>", event="miss").inc()
-            OBS.counter("analog_unified_builds_total",
-                        "per-tag conductance plans (re)built -- each build "
-                        "tiles the weight anew", tag=tag or "<anon>").inc()
         with torch.no_grad():
             plan = build_conductance_plan(w.detach(), self.acfg, self.geom)
             win = self._window(plan)
@@ -1129,24 +1128,23 @@ class AnalogExecutor:
         """Calibrated analog matmul with straight-through digital gradient;
         ``state`` overrides the tag's ideal state."""
         lead = x.shape[:-1]
-        x2 = x.reshape(-1, x.shape[-1]).float()
-        t0 = time.perf_counter() if OBS.enabled else 0.0
-        st = state if state is not None else self.state_for(tag, w)
-        y = _STMatmul.apply(self, tag, x2, w, st)
         key = tag or "<anon>"
+        # the port runs every call eagerly (mode "eager"); the span times
+        # the host until the launches return, not the card: no
+        # synchronization is added here
+        with OBS.span("analog_matmul", "analog matmul host-side latency: "
+                      "the host's time to enqueue the call's launches (no "
+                      "device sync)", tag=key, mode="eager"):
+            x2 = x.reshape(-1, x.shape[-1]).float()
+            st = state if state is not None else self.state_for(tag, w)
+            y = _STMatmul.apply(self, tag, x2, w, st)
+            y = y.reshape(*lead, w.shape[1]).to(x.dtype)
         self.calls[key] = self.calls.get(key, 0) + 1
         if OBS.enabled:
-            # the port runs every call eagerly (mode "eager"); the time is
-            # the host's until the launches return, not the card's: no
-            # synchronization is added here
-            OBS.histogram("analog_matmul_seconds",
-                          "analog matmul host-side latency, launches "
-                          "included (no device sync)", mode="eager").observe(
-                              time.perf_counter() - t0)
             OBS.counter("analog_matmul_calls_total",
                         "analog matmul calls per tag and dispatch mode",
                         tag=key, mode="eager").inc()
-        return y.reshape(*lead, w.shape[1]).to(x.dtype)
+        return y
 
     # ------------------------------------------------------------------ #
     @contextlib.contextmanager

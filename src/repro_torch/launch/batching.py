@@ -46,6 +46,24 @@ Prefill runs in one of two modes:
 Sampling is greedy (argmax), as ``ServeSession`` at ``temperature=0``.
 A tick reads its argmax to the host (one device sync a tick, as in the
 reference); a bulk prefill reads its first token the same way.
+
+With telemetry on, each part of a tick is a span (``repro_torch.obs``;
+attributes in brackets go into the span's record, never into a label)::
+
+    serve_step [tick]
+      serve_admit
+        serve_bulk_prefill [rid, P]
+          serve_prefill_forward         the prefill's launches
+          serve_splice                  its cache into the slot's row
+          serve_first_token_read        the host read that waits for the card
+      serve_decode [tick, live]
+        serve_decode_inputs             tokens and positions to the card
+        serve_decode_forward            the batched decode's launches
+        serve_token_read                the tick's argmax read to the host
+
+The bookkeeping after the read is ``serve_step``'s own time.  A request
+is stamped at submit, admission and first token (``Request.t_*``, on
+``time.monotonic``, the clock of the spans' records).
 """
 from __future__ import annotations
 
@@ -143,6 +161,7 @@ class Request:
     next_pos: int = 0                       # next cache position to write
     out: List[int] = field(default_factory=list)
     t_submit: float = 0.0
+    t_admit: Optional[float] = None         # taken from the queue
     t_first: Optional[float] = None         # time-to-first-token edge
     t_done: Optional[float] = None
 
@@ -215,6 +234,7 @@ class ContinuousBatchEngine:
         self.slots: List[Optional[int]] = [None] * self.max_slots   # rid
         self.prefill_traces = 0
         self.decode_traces = 0
+        self.ticks = 0                          # step() calls so far
         self._prefill = None
         self._decode = None
         self._states: Optional[dict] = None
@@ -383,6 +403,12 @@ class ContinuousBatchEngine:
     def try_admit(self) -> int:
         """Admit queued requests while a slot AND pages are available.
         Returns the number admitted this tick."""
+        with OBS.span("serve_admit", "admission: queued requests to slots, "
+                      "their bulk prefills included (host side)",
+                      site=self.site):
+            return self._admit()
+
+    def _admit(self) -> int:
         n = 0
         while self.queue:
             slot = self._free_slot()
@@ -393,6 +419,12 @@ class ContinuousBatchEngine:
             if not self.pool.reserve(slot, need):
                 break                      # backpressure: pool exhausted
             self.queue.popleft()
+            req.t_admit = time.monotonic()
+            if OBS.enabled:
+                OBS.histogram("serve_request_queue_seconds",
+                              "submit -> admission to a slot, per request",
+                              site=self.site, arch=self.cfg.name).observe(
+                                  req.t_admit - req.t_submit)
             self.slots[slot] = req.rid
             req.slot, req.next_pos = slot, 0
             if self.prefill_mode == "bulk":
@@ -409,11 +441,21 @@ class ContinuousBatchEngine:
 
     def _bulk_prefill(self, req: Request) -> None:
         P = req.prompt.size
-        tokens = torch.from_numpy(req.prompt[None, :]).to(self.device)
-        logits, pcache = self._prefill_fn()({"tokens": tokens}, self._st())
-        self._splice(pcache, req.slot)
-        del pcache
-        req.out.append(int(torch.argmax(logits[0])))     # host sync
+        with OBS.span("serve_bulk_prefill", "one request's bulk prefill: "
+                      "forward, splice, first-token read (host side)",
+                      site=self.site, attrs={"rid": req.rid, "P": int(P)}):
+            tokens = torch.from_numpy(req.prompt[None, :]).to(self.device)
+            with OBS.span("serve_prefill_forward", "the prefill's launches "
+                          "(host side, no device sync)", site=self.site):
+                logits, pcache = self._prefill_fn()({"tokens": tokens},
+                                                    self._st())
+            with OBS.span("serve_splice", "the prefill's cache written into "
+                          "its slot's row (host side)", site=self.site):
+                self._splice(pcache, req.slot)
+                del pcache
+            with OBS.span("serve_first_token_read", "the first token's host "
+                          "read, which waits for the card", site=self.site):
+                req.out.append(int(torch.argmax(logits[0])))  # host sync
         req.next_pos = P
         req.t_first = time.monotonic()
         req.status = RUNNING
@@ -434,19 +476,19 @@ class ContinuousBatchEngine:
     def step(self) -> List[Request]:
         """One scheduler tick: admit, then one batched decode over all
         slots.  Returns the requests that finished this tick."""
+        tick = self.ticks
+        self.ticks += 1
+        with OBS.span("serve_step", "one scheduler tick: admission, the "
+                      "batched decode, the bookkeeping (host side)",
+                      site=self.site, attrs={"tick": tick}):
+            return self._tick(tick)
+
+    def _tick(self, tick: int) -> List[Request]:
         self.try_admit()
         live = [(i, self.requests[rid]) for i, rid in enumerate(self.slots)
                 if rid is not None]
         if not live:
             return []
-        tok = np.zeros((self.max_slots, 1), np.int64)
-        pos = np.zeros((self.max_slots,), np.int64)
-        for i, req in live:
-            if req.status == PREFILL:
-                tok[i, 0] = req.prompt[req.next_pos]
-            else:
-                tok[i, 0] = req.out[-1]
-            pos[i] = req.next_pos
         if OBS.enabled:
             OBS.gauge("serve_slots_active",
                       "live request slots this tick", site=self.site) \
@@ -455,11 +497,32 @@ class ContinuousBatchEngine:
                           "live slots per batched decode tick "
                           "(out of max_slots)", site=self.site,
                           slots=str(self.max_slots)).observe(len(live))
-        dev = self.device
-        logits, self._cache = self._decode_fn()(
-            torch.from_numpy(tok).to(dev), self._cache,
-            torch.from_numpy(pos).to(dev), self._st())
-        largs = torch.argmax(logits, dim=-1).cpu().numpy()  # the tick's sync
+        with OBS.span("serve_decode", "one batched decode: inputs, forward, "
+                      "token read (host side)", site=self.site,
+                      attrs={"tick": tick, "live": len(live)}):
+            with OBS.span("serve_decode_inputs", "the tick's tokens and "
+                          "positions, copied to the card (host side)",
+                          site=self.site):
+                tok = np.zeros((self.max_slots, 1), np.int64)
+                pos = np.zeros((self.max_slots,), np.int64)
+                for i, req in live:
+                    if req.status == PREFILL:
+                        tok[i, 0] = req.prompt[req.next_pos]
+                    else:
+                        tok[i, 0] = req.out[-1]
+                    pos[i] = req.next_pos
+                dev = self.device
+                tok_d = torch.from_numpy(tok).to(dev)
+                pos_d = torch.from_numpy(pos).to(dev)
+            with OBS.span("serve_decode_forward", "the batched decode's "
+                          "launches (host side, no device sync)",
+                          site=self.site):
+                logits, self._cache = self._decode_fn()(
+                    tok_d, self._cache, pos_d, self._st())
+            with OBS.span("serve_token_read", "the tick's argmax read to "
+                          "the host, which waits for the card",
+                          site=self.site):
+                largs = torch.argmax(logits, dim=-1).cpu().numpy()
 
         finished: List[Request] = []
         n_dec = 0

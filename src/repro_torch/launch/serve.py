@@ -328,17 +328,13 @@ class ServeSession:
         out_logits: List[torch.Tensor] = [logits]
         t0 = time.perf_counter()
         for i in range(G - 1):
-            ts = time.perf_counter() if OBS.enabled else 0.0
-            logits, cache = self._decode(tok, cache, P + i, states)
-            if OBS.enabled:
-                # the host's time until the step's launches return: no
-                # device sync inside the loop (the synchronized total is
-                # serve_decode_seconds)
-                OBS.histogram("serve_decode_step_seconds",
-                              "per-step decode latency, host side (no "
-                              "device sync)", site=self.site,
-                              arch=self.cfg.name).observe(
-                                  time.perf_counter() - ts)
+            # the host's time until the step's launches return: no device
+            # sync inside the loop (the synchronized total is
+            # serve_decode_seconds)
+            with OBS.span("serve_decode_step", "per-step decode latency, "
+                          "host side (no device sync)", site=self.site,
+                          arch=self.cfg.name):
+                logits, cache = self._decode(tok, cache, P + i, states)
             tok = self._next_token(logits)
             out_tokens.append(tok)
             out_logits.append(logits)

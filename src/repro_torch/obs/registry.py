@@ -26,12 +26,14 @@ Everything is thread-safe: one lock per metric guards its label series
 from __future__ import annotations
 
 import bisect
+import collections
+import itertools
 import math
 import os
 import threading
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
-from repro_torch.obs.trace import NULL_SPAN, Span
+from repro_torch.obs.trace import NULL_SPAN, Span, SpanRecord
 
 # Latency-oriented default buckets (seconds): 100 us .. 10 s, roughly
 # log-spaced, wide enough for both a fused-kernel dispatch and a full
@@ -41,6 +43,10 @@ DEFAULT_BUCKETS: Tuple[float, ...] = (
     1e-1, 2.5e-1, 5e-1, 1.0, 2.5, 5.0, 10.0)
 
 _KINDS = ("counter", "gauge", "histogram")
+
+# span records a Telemetry keeps (an engine tick leaves ~14: a 45 s window
+# of phi3.5-moe's chat serve on an H100 left ~7,600)
+MAX_SPANS = 1 << 16
 
 
 class _HistSeries:
@@ -219,12 +225,24 @@ class Telemetry(MetricsRegistry):
     while disabled.  ``profiler=True`` additionally wraps every span in
     a ``torch.profiler.record_function`` so spans land on profiler
     traces.
+
+    While enabled, every finished span also appends a ``SpanRecord`` to
+    a buffer of at most ``max_spans`` (``MAX_SPANS``) records;
+    ``take_spans()`` returns them and empties it.  A full buffer drops
+    its oldest record and counts it in ``obs_spans_dropped_total``.  A
+    span's parent is the span open around it on the same thread (the
+    ``AsyncBatchServer`` steps its engine on a thread of its own).
     """
 
     def __init__(self, enabled: bool = False, profiler: bool = False):
         super().__init__()
         self.enabled = enabled
         self.profiler = profiler
+        self.max_spans = MAX_SPANS
+        self._spans: collections.deque = collections.deque()
+        self._spans_lock = threading.Lock()
+        self._span_ids = itertools.count(1)
+        self._open = threading.local()          # each thread's open span ids
 
     def enable(self, profiler: Optional[bool] = None) -> "Telemetry":
         self.enabled = True
@@ -236,10 +254,49 @@ class Telemetry(MetricsRegistry):
         self.enabled = False
         return self
 
-    def span(self, name: str, help: str = "", **labels):
+    def span(self, name: str, help: str = "",
+             attrs: Optional[dict] = None, **labels):
+        """A span timing its with-block into ``<name>_seconds`` under
+        ``labels``; ``attrs`` go into its record alone."""
         if not self.enabled:
             return NULL_SPAN
-        return Span(self, name, help, labels)
+        return Span(self, name, help, labels, attrs)
+
+    def _enter_span(self, span: Span) -> None:
+        stack = getattr(self._open, "ids", None)
+        if stack is None:
+            stack = self._open.ids = []
+        span.id = next(self._span_ids)
+        span.parent = stack[-1] if stack else 0
+        stack.append(span.id)
+
+    def _exit_span(self, rec: SpanRecord) -> None:
+        stack = getattr(self._open, "ids", [])
+        if stack and stack[-1] == rec.id:
+            stack.pop()
+        elif rec.id in stack:                  # left out of order
+            stack.remove(rec.id)
+        with self._spans_lock:
+            full = len(self._spans) >= self.max_spans
+            if full:
+                self._spans.popleft()
+            self._spans.append(rec)
+        if full:
+            self.counter("obs_spans_dropped_total",
+                         "span records dropped from a full buffer, the "
+                         "oldest first").inc()
+
+    def take_spans(self) -> List[SpanRecord]:
+        """The buffered span records, oldest first; the buffer emptied."""
+        with self._spans_lock:
+            out = list(self._spans)
+            self._spans.clear()
+        return out
+
+    def reset(self) -> None:
+        """Drop every metric and every buffered span record."""
+        super().reset()
+        self.take_spans()
 
 
 def _env_enabled() -> bool:

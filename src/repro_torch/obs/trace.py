@@ -1,12 +1,19 @@
-"""Trace spans: wall-clock timing of a code region into a histogram (port
-of ``repro.obs.trace``).
+"""Trace spans: timing of a code region into a histogram and a span record
+(port of ``repro.obs.trace``, with the record added).
 
 On exit a span records the elapsed seconds into the owning registry's
 ``<name>_seconds`` histogram (span names therefore use underscores, so
-the derived metric name is Prometheus-legal as it is).  With the
-registry's ``profiler`` flag set the span also enters a
-``torch.profiler.record_function`` of the same name, so serving spans
-show up on a ``torch.profiler`` trace next to the kernels they wrap.
+the derived metric name is Prometheus-legal as it is), labelled by its
+low-cardinality ``labels`` (``site``, ``tag``, ``step``) only.  It also
+hands the owning ``Telemetry`` one ``SpanRecord``: its name, start and
+end on ``time.monotonic_ns()`` (the clock a device trace is tied to, and
+the one ``Request``'s stamps use), its id, the id of the span that
+encloses it on the same thread (0 for none), its labels, and its
+``attrs``: the values that identify one request or one tick (``rid``,
+``tick``, ``live``, ``P``), which never become histogram labels, so a
+long serve does not grow a series per request.  With the registry's
+``profiler`` flag set the span also enters a
+``torch.profiler.record_function`` of the same name.
 
 A span never synchronizes the device: around an asynchronous CUDA launch
 it times the host side (the call site says so).  When telemetry is
@@ -16,6 +23,7 @@ empty method calls, no allocation, no clock read.
 from __future__ import annotations
 
 import time
+from typing import NamedTuple
 
 
 class NullSpan:
@@ -33,18 +41,33 @@ class NullSpan:
 NULL_SPAN = NullSpan()
 
 
-class Span:
-    """Times a with-block into ``<name>_seconds`` on ``registry``."""
+class SpanRecord(NamedTuple):
+    """One finished span, as ``Telemetry.take_spans()`` returns it."""
+    name: str
+    t0_ns: int                  # time.monotonic_ns() at entry
+    t1_ns: int                  # ... and at exit
+    id: int
+    parent: int                 # the enclosing span on the thread; 0: none
+    labels: dict
+    attrs: dict
 
-    __slots__ = ("_registry", "name", "help", "labels", "_t0", "_annotation")
+
+class Span:
+    """Times a with-block into ``<name>_seconds`` on ``registry`` (a
+    ``Telemetry``) and into its span records."""
+
+    __slots__ = ("_registry", "name", "help", "labels", "attrs", "id",
+                 "parent", "_t0", "_annotation")
 
     def __init__(self, registry, name: str, help: str = "",
-                 labels: dict | None = None):
+                 labels: dict | None = None, attrs: dict | None = None):
         self._registry = registry
         self.name = name
         self.help = help
         self.labels = labels or {}
-        self._t0 = 0.0
+        self.attrs = attrs or {}
+        self.id = self.parent = 0
+        self._t0 = 0
         self._annotation = None
 
     def __enter__(self) -> "Span":
@@ -53,14 +76,18 @@ class Span:
 
             self._annotation = torch.profiler.record_function(self.name)
             self._annotation.__enter__()
-        self._t0 = time.perf_counter()
+        self._registry._enter_span(self)
+        self._t0 = time.monotonic_ns()
         return self
 
     def __exit__(self, *exc) -> bool:
-        dt = time.perf_counter() - self._t0
+        t1 = time.monotonic_ns()
         if self._annotation is not None:
             self._annotation.__exit__(*exc)
             self._annotation = None
         self._registry.histogram(self.name + "_seconds", self.help,
-                                 **self.labels).observe(dt)
+                                 **self.labels).observe((t1 - self._t0) * 1e-9)
+        self._registry._exit_span(SpanRecord(self.name, self._t0, t1, self.id,
+                                             self.parent, self.labels,
+                                             self.attrs))
         return False

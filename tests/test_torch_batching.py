@@ -140,6 +140,69 @@ def test_batched_bit_identical_ideal_corner_analog():
         _sequential_reference(sess, prompts, gen=Ga, states=eng._st())
 
 
+def test_a_tick_with_a_bulk_prefill_records_the_span_tree():
+    """With telemetry on, one ``step()`` that admits a request records the
+    engine's span tree -- the admission's bulk prefill (forward, splice,
+    first-token read), then the decode (inputs, forward, token read) --
+    with an ``analog_matmul`` under both forwards; the request's stamps
+    are ordered submit <= admit <= first token."""
+    from repro_torch.configs.base import AnalogConfig
+    from repro_torch.configs.rram_ps32 import CASE_A
+    from repro_torch.core.analog import AnalogExecutor
+    from repro_torch.obs import OBS
+
+    ex = AnalogExecutor(AnalogConfig(backend="analytic", layers=("mlp",)),
+                        geom=CASE_A)
+    sess = _session(gen=4, executor=ex)
+    eng = ContinuousBatchEngine(sess, max_slots=2, max_len=P + 4)
+    prompt = _prompts(1, 5, sess.cfg.vocab_size)[0]
+    rid = eng.submit(prompt, max_new=4)
+    OBS.reset()
+    OBS.enable()
+    try:
+        eng.step()
+        recs = OBS.take_spans()
+        met = OBS.snapshot()["metrics"]
+    finally:
+        OBS.reset()
+        OBS.disable()
+    kids = {}
+    for r in recs:
+        kids.setdefault(r.parent, []).append(r)
+    for v in kids.values():
+        v.sort(key=lambda r: r.t0_ns)
+
+    def names(r, skip=()):
+        return [c.name for c in kids.get(r.id, []) if c.name not in skip]
+
+    (step,) = kids[0]
+    assert step.name == "serve_step" and step.attrs == {"tick": 0}
+    admit, dec = kids[step.id]
+    assert (admit.name, dec.name) == ("serve_admit", "serve_decode")
+    (bulk,) = kids[admit.id]
+    assert bulk.name == "serve_bulk_prefill"
+    assert bulk.attrs == {"rid": rid, "P": 5}
+    assert names(bulk) == ["serve_prefill_forward", "serve_splice",
+                           "serve_first_token_read"]
+    assert dec.attrs == {"tick": 0, "live": 1}
+    assert names(dec) == ["serve_decode_inputs", "serve_decode_forward",
+                          "serve_token_read"]
+    for fwd in (kids[bulk.id][0], kids[dec.id][1]):
+        mm = names(fwd)
+        assert mm and set(mm) == {"analog_matmul"}
+    for r in recs:                                 # children inside parents
+        if r.parent:
+            (p,) = [q for q in recs if q.id == r.parent]
+            assert p.t0_ns <= r.t0_ns <= r.t1_ns <= p.t1_ns
+    req = eng.requests[rid]
+    assert req.t_submit <= req.t_admit <= req.t_first
+    assert bulk.t0_ns * 1e-9 <= req.t_first + 1e-6
+    (q,) = met["serve_request_queue_seconds"]["series"]
+    assert q["count"] == 1 and set(q["labels"]) == {"site", "arch"}
+    (h,) = met["serve_bulk_prefill_seconds"]["series"]
+    assert h["labels"] == {"site": eng.site}        # rid and P: records only
+
+
 # --------------------------------------------------------------------------- #
 # Packed prefill: mixed prefill and decode rows, one decode build
 # --------------------------------------------------------------------------- #

@@ -6,12 +6,15 @@ reference's ``tests/test_obs.py``:
     safety under a ``ThreadPoolExecutor``;
   * disabled mode records nothing: the shared ``NULL_SPAN``, and the
     instrumented executor path leaves the registry empty;
+  * the span records: ids, parents on each thread's own stack, times on
+    ``time.monotonic_ns()``, attributes kept out of the histogram's
+    labels, the bounded buffer and its drop counter;
   * the exporters: JSON round trip, Prometheus round trip,
     ``diff_snapshots``;
   * neutrality: with telemetry on, a deploy -> calibrate -> matmul -> age
-    sequence on the analytic backend gives the same bits and the same
-    executor builds as with it off; the counters equal the executor's own
-    build and call counts;
+    sequence on the analytic backend, and an engine's serve through it,
+    give the same bits and the same builds as with it off; the counters
+    equal the executor's own build and call counts;
   * ``RecompileSentinel`` over the port's build counters;
   * a ``ServeSession`` snapshot, a ``ContinuousBatchEngine`` snapshot and
     the ``serve --telemetry`` CLI's snapshot pass
@@ -164,6 +167,93 @@ def test_disabled_span_is_shared_null():
     assert t.snapshot()["metrics"] == {}
 
 
+# --------------------------------------------------------------------------- #
+# span records
+# --------------------------------------------------------------------------- #
+def test_span_records_ids_parents_times_and_attributes():
+    """Each finished span leaves one record: a fresh id, the enclosing
+    span's id as parent, start and end on ``time.monotonic_ns()``, its
+    labels, and its attributes, which never label the histogram."""
+    import time
+    t = Telemetry(enabled=True)
+    lo = time.monotonic_ns()
+    with t.span("serve_step", site="s#0", attrs={"tick": 7}):
+        with t.span("serve_bulk_prefill", site="s#0",
+                    attrs={"rid": 3, "P": 12}):
+            pass
+        with t.span("serve_decode", site="s#0", attrs={"tick": 7, "live": 2}):
+            pass
+    hi = time.monotonic_ns()
+    pre, dec, step = t.take_spans()                 # in the order they end
+    assert [r.name for r in (pre, dec, step)] == [
+        "serve_bulk_prefill", "serve_decode", "serve_step"]
+    assert len({pre.id, dec.id, step.id}) == 3 and 0 not in (pre.id, dec.id)
+    assert step.parent == 0 and pre.parent == dec.parent == step.id
+    assert lo <= step.t0_ns <= pre.t0_ns <= pre.t1_ns <= dec.t0_ns \
+        <= dec.t1_ns <= step.t1_ns <= hi
+    assert pre.attrs == {"rid": 3, "P": 12} and pre.labels == {"site": "s#0"}
+    met = t.snapshot()["metrics"]
+    for name in ("serve_step", "serve_bulk_prefill", "serve_decode"):
+        (h,) = met[name + "_seconds"]["series"]
+        assert h["labels"] == {"site": "s#0"} and h["count"] == 1
+    (h,) = met["serve_step_seconds"]["series"]
+    assert h["sum"] == pytest.approx((step.t1_ns - step.t0_ns) * 1e-9)
+    assert t.take_spans() == []                     # taken: the buffer empty
+
+
+def test_span_parents_follow_each_thread():
+    """A span opened on another thread while one is open here is that
+    thread's root, and a span opened inside it there is its child."""
+    import threading
+    t = Telemetry(enabled=True)
+    inside, done = threading.Event(), threading.Event()
+
+    def other():
+        inside.wait(10)
+        with t.span("loop_tick"):
+            with t.span("loop_read"):
+                pass
+        done.set()
+
+    th = threading.Thread(target=other)
+    th.start()
+    with t.span("main_step"):
+        inside.set()
+        assert done.wait(10)
+    th.join(10)
+    assert not th.is_alive()
+    by = {r.name: r for r in t.take_spans()}
+    assert by["main_step"].parent == 0 and by["loop_tick"].parent == 0
+    assert by["loop_read"].parent == by["loop_tick"].id
+
+
+def test_span_buffer_is_bounded_and_counts_what_it_drops():
+    t = Telemetry(enabled=True)
+    t.max_spans = 3
+    for i in range(5):
+        with t.span("tick", attrs={"tick": i}):
+            pass
+    assert [r.attrs["tick"] for r in t.take_spans()] == [2, 3, 4]
+    (d,) = t.snapshot()["metrics"]["obs_spans_dropped_total"]["series"]
+    assert d["value"] == 2
+    with t.span("tick"):
+        pass
+    t.reset()                                       # records go with metrics
+    assert t.take_spans() == [] and t.snapshot()["metrics"] == {}
+
+
+def test_disabled_spans_leave_no_record():
+    t = Telemetry(enabled=False)
+    assert t.span("serve_step", site="x", attrs={"tick": 0}) is NULL_SPAN
+    with t.span("serve_step"):
+        pass
+    t.enable()
+    t.disable()
+    with t.span("serve_step"):
+        pass
+    assert t.take_spans() == [] and t.snapshot()["metrics"] == {}
+
+
 def test_disabled_hot_path_records_nothing():
     assert not OBS.enabled                        # the suite's default
     OBS.reset()
@@ -266,35 +356,68 @@ def _exercise(ex, x, w):
     return ys, {k: dict(v) for k, v in ex.builds.items()}
 
 
+ENGINE_SPANS = {"serve_step", "serve_admit", "serve_bulk_prefill",
+                "serve_prefill_forward", "serve_splice",
+                "serve_first_token_read", "serve_decode",
+                "serve_decode_inputs", "serve_decode_forward",
+                "serve_token_read", "analog_matmul"}
+
+
+def _serve(ex):
+    """A short engine serve through ``ex``: (tokens, engine builds)."""
+    from repro_torch.launch.batching import ContinuousBatchEngine
+    from repro_torch.launch.serve import ServeSession
+    sess = ServeSession("gemma3-1b", reduced=True, reduced_layers=1,
+                        batch=1, prompt_len=6, gen=3, seed=0, executor=ex,
+                        device="cpu")
+    eng = ContinuousBatchEngine(sess, max_slots=2, max_len=9)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, sess.cfg.vocab_size, (n,)) for n in (6, 4, 5)]
+    return (eng.run(prompts, max_new=3),
+            (eng.prefill_traces, eng.decode_traces, eng.ticks))
+
+
 def test_telemetry_is_build_and_bit_neutral(obs_enabled):
-    """Identical executor builds and bit-identical outputs with telemetry
-    on and off."""
+    """Identical executor and engine builds and bit-identical outputs with
+    telemetry on and off; on, every span of the engine and the executor
+    left its record."""
     x, w = _data()
     OBS.disable()
     ys_off, builds_off = _exercise(_executor(), x, w)
+    ex_off = _executor()
+    toks_off, eng_off = _serve(ex_off)
     assert OBS.snapshot()["metrics"] == {}          # really was off
+    assert OBS.take_spans() == []
     OBS.enable()
     ys_on, builds_on = _exercise(_executor(), x, w)
+    ex_on = _executor()
+    toks_on, eng_on = _serve(ex_on)
     assert builds_on == builds_off
     assert builds_on["state"]["par"] == 3           # ideal, corner, aged
     for a, b in zip(ys_off, ys_on):
         assert torch.equal(a, b)
+    assert eng_on == eng_off and ex_on.builds == ex_off.builds
+    for a, b in zip(toks_off, toks_on):
+        np.testing.assert_array_equal(a, b)
+    assert {r.name for r in OBS.take_spans()} == ENGINE_SPANS
     met = OBS.snapshot()["metrics"]
     for name in ("analog_plan_cache_total", "analog_state_cache_total",
                  "analog_matmul_calls_total", "analog_matmul_seconds",
-                 "analog_traces_total", "analog_unified_builds_total",
-                 "analog_calibration_residual", "analog_calibration_probes",
-                 "analog_calibrations_total"):
+                 "analog_traces_total", "analog_calibration_residual",
+                 "analog_calibration_probes", "analog_calibrations_total",
+                 "serve_request_queue_seconds"):
         assert name in met, name
+    assert {s["labels"]["tag"] for s in met["analog_matmul_seconds"][
+        "series"]} >= {"par"}
     modes = {s["labels"]["mode"]: s["value"]
              for s in met["analog_calibrations_total"]["series"]}
     assert modes == {"cold": 1.0, "warm": 1.0}
 
 
 def test_enabled_counters_match_the_executor(obs_enabled):
-    """analog_traces_total / analog_unified_builds_total / the call
-    counter equal the executor's own read-plan builds, plan builds and
-    calls; the cache counters split hits from misses."""
+    """analog_traces_total / the plan cache's misses / the call counter
+    equal the executor's own read-plan builds, plan builds and calls; the
+    cache counters split hits from misses."""
     x, w = _data()
     ex = _executor()
     for _ in range(3):
@@ -306,11 +429,10 @@ def test_enabled_counters_match_the_executor(obs_enabled):
                    if all(s["labels"].get(k) == v for k, v in labels.items()))
 
     assert total("analog_traces_total", tag="ct") == ex.builds["read"]["ct"] == 3
-    assert total("analog_unified_builds_total", tag="ct") == \
+    assert total("analog_plan_cache_total", tag="ct", event="miss") == \
         ex.builds["plan"]["ct"] == 1
     assert total("analog_matmul_calls_total", tag="ct", mode="eager") == \
         ex.calls["ct"] == 3
-    assert total("analog_plan_cache_total", tag="ct", event="miss") == 1
     assert total("analog_plan_cache_total", tag="ct", event="hit") >= 3
     assert total("analog_state_cache_total", tag="ct", event="miss") == \
         ex.builds["state"]["ct"] == 1
