@@ -25,7 +25,10 @@ JAX or of the JAX package.  Phases (any failure exits non-zero):
      B3 likewise: M = R + 1 and one row a tile; B2 with passes of one
      block, tiles that are not whole passes, P = 0, 2, 15 and 40) and at
      the full-width gemma3-1b MLP shapes; outputs compared at rtol 1e-4 /
-     atol 1e-5
+     atol 1e-5; B1's persistent walk (``b1_walk_check``): lattices with
+     fewer items than the card's resident thread blocks and far more,
+     both modes and geometries, ragged M, two row tiles, against the plain
+     version and bit for bit against a launch of one item a thread block
   3. the emulator lifecycle at the paper's sizes through the port's
      quickstart: label the Table 1 dataset (50,000 + 5,000 CASE_A blocks)
      with the circuit solver, train a Conv4Xbar on it (B2 evaluates the
@@ -362,6 +365,18 @@ B2_CASES = [
     ("A P=40 N=50", "A", 40, 50, None), ("A P=2 N=5000", "A", 2, 5000, None),
     ("B P=15 N=5000", "B", 15, 5000, None), ("A P=15 N=5000", "A", 15, 5000, None),
     ("A P=2 N=65536", "A", 2, 65536, None)]
+# B1's persistent walk: (label, geometry name, P, NB, NO, M, block_m, shift);
+# the first two lattices hold fewer (block, row tile) items than the card's
+# resident thread blocks (264 under CASE_A, 132 under CASE_B), so each
+# thread block takes one item; the others far more, drawn from the
+# launch's ticket, with ragged M and row tiles of 4 and 8 below M
+B1_WALK_CASES = [
+    ("A below the slots", "A", 0, 3, 40, 5, None, None),
+    ("B below the slots", "B", 15, 2, 30, 9, None, "flat"),
+    ("A far above M=13 bm=4", "A", 15, 16, 4096, 13, 4, "block"),
+    ("A far above M=37", "A", 0, 48, 1000, 37, None, None),
+    ("B far above M=20 bm=8", "B", 0, 16, 1024, 20, 8, None),
+    ("B far above M=3", "B", 15, 10, 2000, 3, None, "block")]
 # B2's kernel per geometry, as ptxas names its template instances
 B2_TEMPLATES = {"CASE_A": "block_warp_kernelILi4ELi2ELi1E",
                 "CASE_B": "block_warp_kernelILi2ELi8ELi4E"}
@@ -565,6 +580,64 @@ def compare(label, got, want, rtol=RTOL, atol=ATOL):
     return mabs
 
 
+def b1_walk_check(dev):
+    """B1's persistent thread blocks at ``B1_WALK_CASES``, in both modes:
+    the kernel against its plain version (rtol 1e-4 / atol 1e-5) and, bit
+    for bit, against the same inputs launched one item a thread block
+    (the grid of a lattice below the slots); prints each launch's items,
+    thread blocks and items each, and the resident thread blocks per
+    geometry and mode.  Returns the max abs error of each mode."""
+    import torch
+    from repro_torch.configs.rram_ps32 import CASE_A, CASE_B
+    from repro_torch.core import conv4xbar
+    from repro_torch.kernels.emulator_block import emulator_block as eb
+    for gid, name in enumerate(("CASE_A", "CASE_B")):
+        for mode, dt in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+            print(f"[B1 walk] {name} {mode}: resident thread blocks (the "
+                  f"runtime's occupancy x SMs) {eb.unified_slots(gid, dt, dev)}"
+                  f"; dynamic shared memory {eb.unified_smem_bytes(gid, dt)} B",
+                  flush=True)
+    worst = {"fp32": 0.0, "bf16": 0.0}
+    for i, (label, gname, P, NB, NO, M, bm, sh) in enumerate(B1_WALK_CASES):
+        geom = {"A": CASE_A, "B": CASE_B}[gname]
+        aux = conv4xbar.blocklast_weights(rand_params(geom, P, 30 + P, dev), geom)
+        g = torch.Generator(device=dev)
+        g.manual_seed(400 + i)
+        gn = torch.rand((NB, NO, geom.tiles, geom.rows, geom.cols),
+                        generator=g, device=dev)
+        u = torch.rand((M, NB, geom.tiles, geom.rows), generator=g, device=dev)
+        u = torch.where(u < 0.2, torch.zeros_like(u), u)
+        pos = ((torch.rand(u.shape, generator=g, device=dev) < 0.5)
+               & (u > 0)).float()
+        shift = None
+        if sh is not None:
+            shp = (32,) if sh == "flat" else (NB * NO, 32)
+            shift = 0.2 * torch.randn(shp, generator=g, device=dev)
+        for mode, dt in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+            a = eb.launch_args(aux, gn, u, pos, shift, bm, dt)
+            got = eb.launch_unified(a, gn, u, pos, shift)
+            one = eb.launch_args(aux, gn, u, pos, shift, bm, dt,
+                                 slots=2 ** 31 - 1)
+            each = eb.launch_unified(one, gn, u, pos, shift)
+            want = eb.emulator_block_unified_plain(aux, gn, u, pos, shift=shift,
+                                                   compute_dtype=dt)
+            torch.cuda.synchronize()
+            tag = (f"B1 walk {mode} {label}: NB={NB} NO={NO} M={M} "
+                   f"bm={a['bm']}, {a['items']} items in {a['ctas']} thread "
+                   f"blocks")
+            worst[mode] = max(worst[mode], compare(tag, got, want))
+            eq = torch.equal(got, each)
+            print(f"[B1 walk] {tag} vs {one['ctas']} thread blocks of one "
+                  f"item: bit-equal {eq}", flush=True)
+            if not eq:
+                fail(f"[{tag}] differs from one item a thread block")
+            if a["ctas"] != min(a["items"], eb.unified_slots(a["geom"], dt, dev)):
+                fail(f"[{tag}] is not min(items, resident thread blocks)")
+            del got, each, want
+    torch.cuda.empty_cache()
+    return worst
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -725,6 +798,9 @@ def main() -> None:
             timed[(label.split()[0], M)] = (aux, gn, u, pos, plan)
         del got, want
     torch.cuda.empty_cache()
+    walk = b1_walk_check(dev)
+    max_abs["B1"] = max(max_abs["B1"], walk["fp32"])
+    max_abs["B1 bf16"] = max(max_abs["B1 bf16"], walk["bf16"])
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(300)

@@ -120,6 +120,8 @@ from repro_torch.core.deployment import Deployment, DeploymentState
 from repro_torch.core.emulator import normalize_features
 from repro_torch.kernels.emulator_block import (emulator_block_grid,
                                                 emulator_block_unified)
+from repro_torch.kernels.emulator_block.emulator_block import \
+    emulator_block_unified_cuda
 from repro_torch.kernels.emulator_block.ops import emulator_block
 from repro_torch.nonideal.lifetime import scenario_at_age
 from repro_torch.nonideal.perturb import (apply_read_noise, perturb_plan,
@@ -1129,6 +1131,8 @@ class AnalogExecutor:
         ``state`` overrides the tag's ideal state."""
         lead = x.shape[:-1]
         key = tag or "<anon>"
+        b1 = emulator_block_unified_cuda
+        b1_ctas, b1_items = b1.ctas, b1.items
         # the port runs every call eagerly (mode "eager"); the span times
         # the host until the launches return, not the card: no
         # synchronization is added here
@@ -1144,6 +1148,13 @@ class AnalogExecutor:
             OBS.counter("analog_matmul_calls_total",
                         "analog matmul calls per tag and dispatch mode",
                         tag=key, mode="eager").inc()
+            OBS.counter("analog_b1_ctas_total",
+                        "B1's thread blocks launched per tag",
+                        tag=key).inc(b1.ctas - b1_ctas)
+            OBS.counter("analog_b1_items_total",
+                        "B1's (crossbar block, row tile) items per tag; "
+                        "items / thread blocks is how far the walk engaged",
+                        tag=key).inc(b1.items - b1_items)
         return y
 
     # ------------------------------------------------------------------ #

@@ -8,7 +8,9 @@ its plain PyTorch version.
   W-stage, FC head and the optional fc0 shift
   (``csrc/emulator_block_unified.cu``).  It takes the plan's ``g_norm``:
   the kernel folds the per-plan precompute (``conv4xbar.
-  blocklast_precompute``) in, once per thread block, in both modes.
+  blocklast_precompute``) in, once per (block, row tile) item, in both
+  modes; its thread blocks stay resident and draw the items from a
+  counter on the card (``unified_grid``, ``unified_ticket``).
   ``compute_dtype=torch.bfloat16`` is the reference kernel's bf16 mode:
   every GEMM takes bf16-rounded operands and accumulates in float32.  The
   plain version is ``blocklast_precompute`` then ``conv4xbar.
@@ -71,15 +73,17 @@ def _library():
     if "unified" not in _LIB:
         lib = _build.load(SOURCE)
         tail = ([ctypes.c_int, ctypes.POINTER(_Weights), ctypes.c_void_p]
-                + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+                + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 2)
         lib.emulator_block_unified_f32.argtypes = (
             [ctypes.c_int] + [ctypes.c_void_p] * 4 + tail)
         lib.emulator_block_unified_bf16.argtypes = (
             [ctypes.c_int] + [ctypes.c_void_p] * 4 + tail)
         lib.emulator_block_unified_smem.argtypes = [ctypes.c_int] * 2
+        lib.emulator_block_unified_resident.argtypes = [ctypes.c_int] * 2
         for f in (lib.emulator_block_unified_f32,
                   lib.emulator_block_unified_bf16,
-                  lib.emulator_block_unified_smem):
+                  lib.emulator_block_unified_smem,
+                  lib.emulator_block_unified_resident):
             f.restype = ctypes.c_int
         _LIB["unified"] = lib
     return _LIB["unified"]
@@ -91,6 +95,54 @@ def unified_smem_bytes(geom: int, compute_dtype=torch.float32) -> int:
     ``compute_dtype``; builds the library if needed."""
     return int(_library().emulator_block_unified_smem(geom,
                                                       _mode(compute_dtype)))
+
+
+@functools.lru_cache(maxsize=None)
+def _unified_slots(geom: int, mode: int, index: int) -> int:
+    with torch.cuda.device(index):
+        n = int(_library().emulator_block_unified_resident(geom, mode))
+    if n < 1:
+        raise ValueError(f"B1 cannot keep a thread block resident (geom "
+                         f"{geom}, mode {mode}; runtime says {n})")
+    return n * torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def unified_slots(geom: int, compute_dtype, dev: torch.device) -> int:
+    """Thread blocks of B1's kernel the card ``dev`` keeps resident at once
+    for template ``geom`` in the mode of ``compute_dtype``: the runtime's
+    occupancy for the kernel's registers, threads and dynamic shared
+    memory, times the SMs (on an H100 264 under CASE_A and 132 under
+    CASE_B), asked once per device.  Builds the library if needed."""
+    dev = torch.device(dev)
+    index = torch.cuda.current_device() if dev.index is None else dev.index
+    return _unified_slots(geom, _mode(compute_dtype), index)
+
+
+def unified_grid(items: int, slots: int) -> int:
+    """Thread blocks of one B1 launch over ``items`` (crossbar block, row
+    tile) items where the card keeps ``slots`` thread blocks resident:
+    min(items, slots).  Each copies the weights to shared memory once, takes
+    item b (its own index) first, then draws the next item from the
+    launch's ticket (``unified_ticket``) while each item runs, so a thread
+    block that the SM runs faster takes more items and all finish
+    together; where items <= slots, one item a thread block.  The output
+    does not depend on the choice."""
+    return min(items, max(1, slots))
+
+
+_TICKETS: dict = {}
+
+
+def unified_ticket(dev: torch.device, stream: int) -> torch.Tensor:
+    """The two int32 counters that B1's launches on ``stream`` of card
+    ``dev`` draw their items from (the next item past the grid, the thread
+    blocks done): zeroed once, and left at zero by each launch's last
+    thread block, so launches on one stream, which run one after another,
+    share them, and launches on two streams never do."""
+    key = (torch.device(dev).index, stream)
+    if key not in _TICKETS:
+        _TICKETS[key] = torch.zeros(2, dtype=torch.int32, device=dev)
+    return _TICKETS[key]
 
 
 def _check(name: str, t: torch.Tensor, shape, device) -> None:
@@ -116,10 +168,15 @@ def default_block_m(M: int) -> int:
 
 def launch_args(aux: dict, g_norm: torch.Tensor, u01: torch.Tensor,
                 pos01: torch.Tensor, shift: Optional[torch.Tensor] = None,
-                block_m: Optional[int] = None) -> dict:
+                block_m: Optional[int] = None, compute_dtype=torch.float32,
+                slots: Optional[int] = None) -> dict:
     """Validate one call against what the kernel takes and return the
     launch's scalar arguments and tensors; raises on anything else.
-    g_norm: (NB, NO, D, H, W), the plan's normalized conductances."""
+    g_norm: (NB, NO, D, H, W), the plan's normalized conductances.  The
+    grid, ``ctas`` thread blocks over ``items`` items, follows
+    ``unified_grid`` at ``slots`` resident thread blocks, by default the
+    card's (``unified_slots``); off the card, with none given, one item a
+    thread block."""
     dev = u01.device
     if g_norm.dim() != 5 or u01.dim() != 4:
         raise ValueError("g_norm must be (NB,NO,D,H,W) and u01 (M,NB,D,H)")
@@ -167,8 +224,18 @@ def launch_args(aux: dict, g_norm: torch.Tensor, u01: torch.Tensor,
     bm = default_block_m(M) if block_m is None else int(block_m)
     if bm < 1 or -(-M // bm) > 65535:
         raise ValueError(f"block_m={bm} gives an invalid grid for M={M}")
+    mode = _mode(compute_dtype)
+    items = NB * NO * -(-M // bm)
+    if slots is None:
+        slots = (unified_slots(geom, compute_dtype, dev)
+                 if dev.type == "cuda" else items)
+    ctas = unified_grid(items, int(slots))
+    if items + ctas >= 2 ** 31:
+        raise ValueError(f"{items} (block, row tile) items exceed the "
+                         "kernel's 32-bit count")
     return dict(geom=geom, M=M, NB=NB, NO=NO, O=O, bm=bm,
-                per_block=per_block, weights=ws)
+                per_block=per_block, weights=ws, mode=mode, items=items,
+                ctas=ctas)
 
 
 _MODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -190,12 +257,22 @@ def emulator_block_unified_cuda(aux: dict, g_norm: torch.Tensor,
     does not take.  Same contract as ``emulator_block_unified_plain``:
     returns (2, M*NB*NO, O) float32.  Both modes fold the per-plan
     precompute into the kernel; nothing per plan is built here."""
-    mode = _mode(compute_dtype)
+    _mode(compute_dtype)
     if u01.device.type != "cuda":
         raise ValueError("emulator_block_unified_cuda takes CUDA tensors "
                          f"(got {u01.device}); CPU tensors go to the plain "
                          "version")
-    a = launch_args(aux, g_norm, u01, pos01, shift, block_m)
+    a = launch_args(aux, g_norm, u01, pos01, shift, block_m, compute_dtype)
+    return launch_unified(a, g_norm, u01, pos01, shift)
+
+
+def launch_unified(a: dict, g_norm: torch.Tensor, u01: torch.Tensor,
+                   pos01: torch.Tensor,
+                   shift: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One launch of B1 on ``launch_args``' result ``a`` for these tensors,
+    in its mode and on its grid; counts the launch, its thread blocks and
+    its items on ``emulator_block_unified_cuda``.  Returns (2, M*NB*NO, O)
+    float32."""
     M, NB, NO = a["M"], a["NB"], a["NO"]
     out = torch.empty((2, M * NB * NO, a["O"]), dtype=torch.float32,
                       device=u01.device)
@@ -204,17 +281,25 @@ def emulator_block_unified_cuda(aux: dict, g_norm: torch.Tensor,
     stream = torch.cuda.current_stream(u01.device).cuda_stream
     sh = 0 if shift is None else shift.data_ptr()
     tail = (sh, a["per_block"], ctypes.byref(wt), out.data_ptr(), M, NB, NO,
-            a["bm"], stream)
-    fn = (lib.emulator_block_unified_bf16 if mode
+            a["bm"], a["ctas"], unified_ticket(u01.device, stream).data_ptr(),
+            stream)
+    fn = (lib.emulator_block_unified_bf16 if a["mode"]
           else lib.emulator_block_unified_f32)
     err = fn(a["geom"], u01.data_ptr(), pos01.data_ptr(), g_norm.data_ptr(),
              *tail)
     _build.launched(err, "emulator_block_unified")
-    emulator_block_unified_cuda.launches += 1
+    b1 = emulator_block_unified_cuda
+    b1.launches += 1
+    b1.ctas += a["ctas"]
+    b1.items += a["items"]
     return out
 
 
+# launches, and the thread blocks and (block, row tile) items they took:
+# items / ctas is how far the walk engaged
 emulator_block_unified_cuda.launches = 0
+emulator_block_unified_cuda.ctas = 0
+emulator_block_unified_cuda.items = 0
 
 
 def f32_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -7,6 +7,7 @@ launch on the CPU).  The kernel itself runs on the card, where
 ``chip_smoke.py`` holds it against the plain version."""
 import importlib
 import os
+import random
 import subprocess
 import sys
 
@@ -49,7 +50,8 @@ def _setup(g, npf, NB, NO, M, seed=0):
     ("A", 15, 2, 2, 3, "flat"), ("B", 15, 3, 2, 4, "block"),
     ("A", 15, 1, 3, 7, "block"), ("B", 15, 2, 1, 9, "flat")])
 def test_dispatcher_cpu_matches_reference(g, npf, NB, NO, M, shift):
-    eb.emulator_block_unified_cuda.launches = 0
+    b1 = eb.emulator_block_unified_cuda
+    b1.launches = b1.ctas = b1.items = 0
     (ra, rpre, ru, rp), (ta, tgn, tu, tp) = _setup(g, npf, NB, NO, M)
     sh = None
     if shift:
@@ -61,8 +63,9 @@ def test_dispatcher_cpu_matches_reference(g, npf, NB, NO, M, shift):
     got = emulator_block_unified(ta, tgn, tu, tp,
                                  shift=None if sh is None else torch.from_numpy(sh))
     assert_close(got, want, 2e-5, 2e-6)
-    # on the CPU the wrapper takes the plain version; the kernel never runs
-    assert eb.emulator_block_unified_cuda.launches == 0
+    # on the CPU the wrapper takes the plain version; the kernel never runs,
+    # and no thread block or item is counted
+    assert (b1.launches, b1.ctas, b1.items) == (0, 0, 0)
 
 
 # B1's bf16 mode (GEMM operands rounded to bf16, float32 accumulation): the
@@ -249,10 +252,11 @@ def test_kernel_module_imports_without_nvcc():
 
 def test_cuda_entry_refuses_cpu_tensors():
     _, (ta, tgn, tu, tp) = _setup("A", 0, 1, 2, 2)
-    eb.emulator_block_unified_cuda.launches = 0
+    b1 = eb.emulator_block_unified_cuda
+    b1.launches = b1.ctas = b1.items = 0
     with pytest.raises(ValueError, match="CUDA tensors"):
-        eb.emulator_block_unified_cuda(ta, tgn, tu, tp)
-    assert eb.emulator_block_unified_cuda.launches == 0
+        b1(ta, tgn, tu, tp)
+    assert (b1.launches, b1.ctas, b1.items) == (0, 0, 0)
 
 
 def test_plain_version_is_apply_blocklast():
@@ -282,6 +286,19 @@ def test_launch_args_accept_serving_shapes(g, npf, shift):
         ({"A": 0, "B": 1}[g], 5, 2, 3, 2)
     assert a["per_block"] == (shift == "block")
     assert a["O"] == GEOMS[g][1].outputs
+    # off the card, with no resident count given: one item a thread block
+    assert (a["items"], a["ctas"], a["mode"]) == (18, 18, 0)
+
+
+# B1's grid: ``unified_grid`` at the card's resident thread blocks (an
+# H100's: 264 under CASE_A, 132 under CASE_B), reported by ``launch_args``;
+# the lattice is (2, 3) blocks and 5 rows in tiles of 2, 18 items.
+@pytest.mark.parametrize("slots,ctas", [
+    (4, 4), (5, 5), (17, 17), (18, 18), (264, 18), (1, 1)])
+def test_launch_args_report_the_grid(slots, ctas):
+    _, (ta, tgn, tu, tp) = _setup("A", 0, 2, 3, 5)
+    a = eb.launch_args(ta, tgn, tu, tp, None, 2, torch.bfloat16, slots=slots)
+    assert (a["items"], a["ctas"], a["mode"]) == (18, ctas, 1)
 
 
 def test_launch_args_refuse_what_the_kernel_does_not_take():
@@ -296,6 +313,69 @@ def test_launch_args_refuse_what_the_kernel_does_not_take():
         eb.launch_args(ta, tgn, tu, tp, torch.zeros(5, 32))
     with pytest.raises(ValueError, match="grid"):
         eb.launch_args(ta, tgn, tu, tp, None, 0)
+
+
+def _draw(ctas, items, seed, fast=0):
+    """The (thread block, item) pairs of one launch under the kernel's
+    protocol, the thread blocks taking turns at random (seeded; the first
+    ``fast`` of them three times as often, as an SM's favoured thread
+    block): block b takes item b first, at the start of each item draws
+    ctas + ticket[0]++ as its next, stops after an item whose draw is
+    past the items and counts itself out on ticket[1]; the last one out
+    sets both to zero.  Returns the pairs and the ticket after the launch."""
+    rng = random.Random(seed)
+    ticket, at, taken = [0, 0], list(range(ctas)), []
+    live = list(range(ctas))
+    while live:
+        b = rng.choice(live + live[:fast] * 2)
+        nxt = ctas + ticket[0]
+        ticket[0] += 1
+        taken.append((b, at[b]))
+        if nxt < items:
+            at[b] = nxt
+            continue
+        live.remove(b)
+        ticket[1] += 1
+        if ticket[1] == ctas:
+            ticket = [0, 0]
+    return taken, ticket
+
+
+@pytest.mark.parametrize("NB,NO,M,bm,slots", [
+    (2, 3, 8, 8, 264),          # items below the slots: one each
+    (4, 66, 8, 8, 264),         # items equal to the slots
+    (3, 88, 20, 8, 264),        # 3 row tiles, items = 3 x slots
+    (48, 337, 8, 8, 264),       # far above
+    (16, 1024, 37, 16, 132),    # CASE_B's slots, block_m below M
+    (5, 7, 9, 1, 4),            # one row a tile
+    (1, 1, 3, 2, 264)])
+def test_unified_grid_walks_every_item_once(NB, NO, M, bm, slots):
+    """min(items, slots) thread blocks, one item each where items <= slots;
+    under any order of turns the draw hands every (block, row tile) item to
+    exactly one thread block, each row of each block in exactly one tile,
+    every thread block at least one, and leaves the ticket at zero for the
+    next launch; a thread block that runs more often takes more items."""
+    nblk = NB * NO
+    items = nblk * -(-M // bm)
+    ctas = eb.unified_grid(items, slots)
+    assert ctas == min(items, slots)
+    for seed, fast in ((0, 0), (1, ctas // 2)):
+        taken, ticket = _draw(ctas, items, seed, fast)
+        assert ticket == [0, 0]
+        assert sorted(i for _, i in taken) == list(range(items))
+        counts = [0] * ctas
+        for b, _ in taken:
+            counts[b] += 1
+        assert min(counts) >= 1
+        if items <= slots:
+            assert counts == [1] * ctas
+        elif fast and items >= 8 * ctas:
+            assert sum(counts[:fast]) > sum(counts[fast:])
+        # the kernel's item -> (block j, first row m0)
+        rows = [(i % nblk, m) for _, i in taken
+                for m in range(i // nblk * bm, min(M, i // nblk * bm + bm))]
+        assert sorted(rows) == sorted((j, m) for j in range(nblk)
+                                      for m in range(M))
 
 
 @pytest.mark.parametrize("bad", ["g_norm rank", "g_norm blocks", "g_norm H",

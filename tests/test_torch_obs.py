@@ -436,6 +436,43 @@ def test_enabled_counters_match_the_executor(obs_enabled):
     assert total("analog_plan_cache_total", tag="ct", event="hit") >= 3
     assert total("analog_state_cache_total", tag="ct", event="miss") == \
         ex.builds["state"]["ct"] == 1
+    # B1's thread blocks and items, counted where the kernel launches: on
+    # the CPU the plain version runs and both stay 0
+    assert total("analog_b1_ctas_total", tag="ct") == \
+        total("analog_b1_items_total", tag="ct") == 0
+
+
+def test_b1_walk_counters_follow_the_kernel_per_tag(obs_enabled, monkeypatch):
+    """analog_b1_ctas_total / analog_b1_items_total add what the kernel's
+    own ``.ctas`` / ``.items`` gained during each call to the call's tag:
+    here a stand-in launch of 264 thread blocks over 6,144 items a call
+    (a decode call at command-r-plus's sites on an H100)."""
+    from repro_torch.core import analog
+    from repro_torch.kernels.emulator_block.emulator_block import \
+        emulator_block_unified_cuda as b1
+    real = analog._STMatmul.apply
+
+    def launched(*args):
+        b1.ctas += 264
+        b1.items += 6144
+        return real(*args)
+
+    monkeypatch.setattr(analog._STMatmul, "apply", launched)
+    monkeypatch.setattr(b1, "ctas", b1.ctas)
+    monkeypatch.setattr(b1, "items", b1.items)
+    x, w = _data()
+    ex = _executor()
+    for tag, n in (("up", 3), ("down", 2)):
+        for _ in range(n):
+            ex.matmul(x, w, tag)
+    met = OBS.snapshot()["metrics"]
+    got = {(name, s["labels"]["tag"]): s["value"]
+           for name in ("analog_b1_ctas_total", "analog_b1_items_total")
+           for s in met[name]["series"]}
+    assert got == {("analog_b1_ctas_total", "up"): 3 * 264,
+                   ("analog_b1_ctas_total", "down"): 2 * 264,
+                   ("analog_b1_items_total", "up"): 3 * 6144,
+                   ("analog_b1_items_total", "down"): 2 * 6144}
 
 
 def test_the_plan_cache_keeps_a_view_of_the_same_weight():

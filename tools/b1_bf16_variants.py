@@ -100,14 +100,19 @@ def main() -> None:
                 continue          # the variant changes only the bf16 mode
             fn = getattr(lib, f"emulator_block_unified_{mode}")
             n_in = 6 if (name == "parent" and mode == "bf16") else 4
-            fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * n_in + tail_types
+            # this source's kernel takes its thread blocks and ticket
+            grid = [] if name == "parent" else [ctypes.c_int, ctypes.c_void_p]
+            fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * n_in
+                           + tail_types[:-1] + grid + tail_types[-1:])
             fn.restype = ctypes.c_int
             entry[(name, mode)] = fn
 
     def call(name, mode, aux, gn, u, pos, shift=None, bm=None, pre=None):
         """One launch of ``name``'s kernel in ``mode``; the parent's bf16
         mode builds its precompute here unless ``pre`` is given."""
-        a = eb.launch_args(aux, gn, u, pos, shift, bm)
+        a = eb.launch_args(aux, gn, u, pos, shift, bm,
+                           BF16 if mode == "bf16" else torch.float32)
+        stream = torch.cuda.current_stream().cuda_stream
         out = torch.empty((2, a["M"] * a["NB"] * a["NO"], a["O"]), device=dev)
         wt = eb._Weights(**{k: v.data_ptr() for k, v in a["weights"].items()})
         if name == "parent" and mode == "bf16":
@@ -121,8 +126,9 @@ def main() -> None:
             a["geom"], u.data_ptr(), pos.data_ptr(), *ins,
             0 if shift is None else shift.data_ptr(), a["per_block"],
             ctypes.byref(wt), out.data_ptr(), a["M"], a["NB"], a["NO"],
-            a["bm"], torch.cuda.current_stream().cuda_stream),
-            f"{name} {mode}")
+            a["bm"], *(() if name == "parent" else (
+                a["ctas"], eb.unified_ticket(dev, stream).data_ptr())),
+            stream), f"{name} {mode}")
         return out
 
     def check(label, got, want, must_hold):
